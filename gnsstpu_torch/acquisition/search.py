@@ -1,0 +1,148 @@
+"""Cold-start acquisition: FFT code-phase x Doppler search over all PRNs
+(port of gnsstpu/acquisition/search.py, CDMA signals).
+
+Detection logic as the reference: B coherent windows (max-combined
+alternating windows, or sum-combined noncoherent), peak / second-peak
+ratio against a threshold, and the (code phase [samples], carrier
+frequency [Hz]) handoff to tracking. The FDMA search (acquire_fdma) is
+not ported yet (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from gnsstpu.config import AcqConfig, SignalConfig
+from gnsstpu.signals.registry import get_signal
+from gnsstpu_torch.device import resolve_device
+from gnsstpu_torch.ops import fft_acquire
+
+
+@dataclasses.dataclass
+class AcqResults:
+    """Per-PRN acquisition outcome (index 0 = PRN 1), host numpy."""
+
+    peak_metric: np.ndarray   # [P] peak/second-peak ratio
+    code_phase: np.ndarray    # [P] samples (0-based offset of code start)
+    carr_freq: np.ndarray     # [P] acquired carrier frequency [Hz]
+    detected: np.ndarray      # [P] bool
+
+    def detected_prns(self) -> list:
+        return [int(p) + 1 for p in np.nonzero(self.detected)[0]]
+
+
+def _windows_of(acq: AcqConfig) -> tuple:
+    """(n_windows, combine): noncoherent > 1 -> sum-combined; otherwise
+    max-combined windows (2 = alternating bit-flip dodge)."""
+    if acq.noncoherent > 1:
+        return acq.noncoherent, "sum"
+    return (acq.n_windows or 2), "max"
+
+
+def acq_samples_needed(sig: SignalConfig, acq: AcqConfig) -> int:
+    """Leading samples acquire() consumes (B coherent windows + tail)."""
+    spc = sig.samples_per_code
+    B, _ = _windows_of(acq)
+    base = (B - 1) * acq.coherent_ms * spc + fft_acquire.window_len(
+        spc, acq.coherent_ms)
+    return max(base, (acq.fine_doppler_ms + 1) * spc)
+
+
+def refine_doppler(samples_iq: np.ndarray, sig: SignalConfig, prn: int,
+                   code_phase: int, coarse_carr_hz: float,
+                   k_ms: int = 10, iters: int = 2) -> float:
+    """Fine carrier frequency from squared prompt accumulations (host
+    numpy, copied from the reference): wipe code and coarse carrier off
+    k_ms code periods, square each period's prompt to strip data flips,
+    and estimate the residual from the mean phase advance. Returns the
+    refined absolute carrier frequency [Hz]."""
+    from gnsstpu.ops import code_tables
+
+    spc = sig.samples_per_code
+    n = k_ms * spc
+    x = samples_iq[code_phase: code_phase + n]
+    if x.shape[0] < n:
+        raise ValueError("not enough samples for fine Doppler")
+    table = code_tables.sampled_code_table(
+        sig.signal, sig.fs, sig.code_freq, sig.code_length)
+    code = np.tile(table[prn - 1].astype(np.float64), k_ms)
+    xc = (x[:, 0].astype(np.float64) + 1j * x[:, 1]) * code
+    t = np.arange(n, dtype=np.float64) / sig.fs
+    T = spc / sig.fs
+    carr = coarse_carr_hz
+    for _ in range(iters):
+        w = xc * np.exp(-2j * np.pi * carr * t)
+        p = w.reshape(k_ms, spc).sum(axis=1)
+        q = p * p
+        acc = np.sum(q[1:] * np.conj(q[:-1]))
+        carr += float(np.angle(acc)) / (4.0 * np.pi * T)
+    return carr
+
+
+def code_fd_tensor(sig: SignalConfig, acq: AcqConfig, device
+                   ) -> torch.Tensor:
+    """complex64 [P, Npad] conj code spectra on `device`."""
+    fd_re, fd_im = fft_acquire.code_fd_table(
+        sig.signal, sig.fs, sig.code_freq, sig.code_length, acq.coherent_ms)
+    return torch.complex(torch.from_numpy(fd_re),
+                         torch.from_numpy(fd_im)).to(device)
+
+
+def stack_windows(samples: torch.Tensor, spc: int, acq: AcqConfig
+                  ) -> torch.Tensor:
+    """[B, Lw, 2] coherent windows at stride coherent_ms code periods."""
+    B, _ = _windows_of(acq)
+    L = acq.coherent_ms * spc
+    Lw = fft_acquire.window_len(spc, acq.coherent_ms)
+    need = (B - 1) * L + Lw
+    if samples.shape[0] < need:
+        raise ValueError(f"need >= {need} samples for {B} x "
+                         f"{acq.coherent_ms} ms coherent windows")
+    return torch.stack([samples[k * L: k * L + Lw] for k in range(B)])
+
+
+def acquire(samples_iq: np.ndarray, sig: SignalConfig, acq: AcqConfig, *,
+            device="cpu") -> AcqResults:
+    """Search all PRNs of sig.signal in the leading samples on `device`.
+
+    samples_iq: f32 [N >= acq_samples_needed(sig, acq), 2] host samples.
+    """
+    sd = get_signal(sig.signal)
+    if sd.fdma_zero_prn is not None:
+        raise NotImplementedError(
+            "FDMA acquisition (acquire_fdma) is not ported yet: "
+            "ROADMAP queue 1, 'weak-tier and FDMA acquisition'")
+    dev = resolve_device(device)
+    spc = sig.samples_per_code
+    samples = torch.as_tensor(np.array(samples_iq, np.float32),
+                              device=dev)
+    blocks = stack_windows(samples, spc, acq)
+    _, combine = _windows_of(acq)
+    dopp = fft_acquire.doppler_grid(sig.if_freq, acq.doppler_band,
+                                    acq.doppler_bin_step())
+    cube = fft_acquire.acquire_cube(
+        blocks, code_fd_tensor(sig, acq, dev),
+        torch.as_tensor(dopp, dtype=torch.float32, device=dev),
+        sig.fs, spc, combine=combine)
+    m = fft_acquire.peak_metrics(cube, samples_per_code=spc,
+                                 samples_per_chip=round(sig.fs
+                                                        / sig.code_freq))
+    metric = m["metric"].cpu().numpy()
+    code_phase = m["code_phase"].cpu().numpy()
+    best_bin = m["doppler_bin"].cpu().numpy()
+    allowed = np.ones(sd.num_prn, bool)
+    if acq.prn_list is not None:
+        allowed[:] = False
+        allowed[[p - 1 for p in acq.prn_list]] = True
+    detected = (metric > acq.threshold) & allowed
+    carr = dopp[best_bin].astype(np.float64)
+    if acq.fine_doppler_ms > 0:
+        for i in np.nonzero(detected)[0]:
+            carr[i] = refine_doppler(
+                samples_iq, sig, int(i) + 1, int(code_phase[i]), carr[i],
+                k_ms=acq.fine_doppler_ms)
+    return AcqResults(peak_metric=metric, code_phase=code_phase,
+                      carr_freq=carr, detected=detected)

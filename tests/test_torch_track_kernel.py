@@ -1,0 +1,158 @@
+"""Port fused K1 tracker vs gnsstpu's fused Pallas tracker (interpret mode).
+
+On the CPU the port's wrapper runs K1's plain PyTorch twin; the reference
+runs its Pallas kernel in interpret mode, as tests/test_track_kernel.py
+does. Same inputs (JAX IFSimulator on the CPU, numpy tables and state),
+held to test_track_kernel.py's tolerances: block geometry and cursors
+exact, accumulators rtol 2e-3 / atol 2, carrier Doppler 0.05 Hz, code
+remainder 5e-4 chip, carrier phase within one LSB step flip per block.
+
+The CUDA kernel itself is compared with the twin by the tests marked
+`cuda` (skipped without a card) and by chip_smoke.py on the H100.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnsstpu.config import SignalConfig, TrackConfig
+from gnsstpu.sim import IFSimulator, SatParams
+from gnsstpu.tracking import scan as jscan
+from gnsstpu.tracking.fused import fused_code_table as j_fused_code_table
+from gnsstpu.tracking.fused import make_fused_tracker as j_make_fused
+from gnsstpu_torch.device import u32_numpy, u32_tensor
+from gnsstpu_torch.ops import track_kernel as tk
+from gnsstpu_torch.tracking import fused as tfused
+from gnsstpu_torch.tracking import scan as tscan
+
+SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
+TRK = TrackConfig(dll_bw=1.0, el_spacing=0.3)
+CPU = torch.device("cpu")
+ACCS = ("ie", "qe", "ip", "qp", "il", "ql")
+
+
+def _setup(C, n_blocks):
+    prns = [3, 9, 17, 25, 5, 12, 22, 28, 31, 7][:C]
+    sats = [SatParams(prn=p, doppler_hz=400.0 * i - 600.0,
+                      code_phase_chips=50.0 * i + 11.0, cn0_dbhz=49.0)
+            for i, p in enumerate(prns)]
+    chunk = np.asarray(IFSimulator(SIG, sats, noise_sigma=1.0,
+                                   seed=4).generate(n_blocks + 3))
+    tab = j_fused_code_table(SIG, TRK, prns)
+    cb, ia = jscan.channel_consts(SIG, TRK, prns)
+    spchip = SIG.fs / SIG.code_freq
+    cp = np.array([int(round(s.code_phase_chips * spchip)) for s in sats])
+    dp = np.array([s.doppler_hz + 37.0 for s in sats], np.float32)
+    return prns, chunk, tab, cb, ia, cp, dp
+
+
+def _compare(got_state, got_out, ref_state, ref_out, n_blocks):
+    np.testing.assert_array_equal(got_out.blksize.numpy(),
+                                  np.asarray(ref_out.blksize))
+    np.testing.assert_array_equal(got_state.corr.sample_pos.numpy(),
+                                  np.asarray(ref_state.corr.sample_pos))
+    d = (u32_numpy(got_state.corr.carr_phase_u32).astype(np.int64)
+         - np.asarray(ref_state.corr.carr_phase_u32).astype(np.int64))
+    d = (d + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert np.max(np.abs(d)) <= 4 * n_blocks * (SIG.samples_per_code + 2)
+    for name in ACCS:
+        np.testing.assert_allclose(getattr(got_out, name).numpy(),
+                                   np.asarray(getattr(ref_out, name)),
+                                   rtol=2e-3, atol=2.0, err_msg=name)
+    np.testing.assert_allclose(got_out.carr_doppler.numpy(),
+                               np.asarray(ref_out.carr_doppler),
+                               rtol=0, atol=0.05)
+    np.testing.assert_allclose(got_out.rem_code_phase.numpy(),
+                               np.asarray(ref_out.rem_code_phase),
+                               rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("C,n_blocks", [(4, 12), (9, 6)])
+def test_port_fused_matches_reference_fused(C, n_blocks):
+    prns, chunk, tab, cb, ia, cp, dp = _setup(C, n_blocks)
+    st0 = jax.tree.map(jnp.asarray, jscan.TrackState.init(cp, dp))
+    ref = j_make_fused(SIG, TRK, n_blocks=n_blocks, interpret=True)
+    ref_state, ref_out = ref(jnp.asarray(chunk), jnp.asarray(tab),
+                             (jnp.asarray(cb), jnp.asarray(ia)), st0)
+
+    np.testing.assert_array_equal(tfused.fused_code_table(SIG, TRK, prns),
+                                  tab)
+    port = tfused.make_fused_tracker(SIG, TRK, n_blocks=n_blocks)
+    before = tk.LAUNCHES["track_chunk_fused"]
+    got_state, got_out = port(
+        torch.tensor(chunk), torch.tensor(tab),
+        (u32_tensor(cb, CPU), torch.tensor(ia)),
+        tscan.TrackState.init(cp, dp, device=CPU))
+    # The plain twin ran: no kernel launch was counted.
+    assert tk.LAUNCHES["track_chunk_fused"] == before
+    _compare(got_state, got_out, ref_state, ref_out, n_blocks)
+
+
+def test_wrapper_refuses_other_devices():
+    """The wrapper takes the plain twin for CPU tensors only; anything
+    else must launch the kernel or raise, never run elsewhere."""
+    C, blkp = 2, SIG.samples_per_code + 2
+    meta = torch.device("meta")
+    args = (torch.empty((4096, 2), device=meta),
+            torch.empty((C, 128, blkp), device=meta),
+            torch.empty((C,), dtype=torch.int32, device=meta),
+            torch.empty((C, tk.NF), device=meta),
+            torch.empty((C,), dtype=torch.int64, device=meta),
+            torch.empty((C,), dtype=torch.int64, device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.track_chunk_fused(
+            *args, n_blocks=1, blkp=blkp, code_length=1023,
+            phases_per_chip=64, spacing=0.3, span_chips=1.0,
+            base_code_step=0.5, fs=SIG.fs, coefs=(1.0,) * 5)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_twin(cuda_device):
+    C, n_blocks = 4, 12
+    prns, chunk, tab, cb, ia, cp, dp = _setup(C, n_blocks)
+    port = tfused.make_fused_tracker(SIG, TRK, n_blocks=n_blocks)
+    res = {}
+    for dev in (CPU, cuda_device):
+        before = tk.LAUNCHES["track_chunk_fused"]
+        st, out = port(torch.tensor(chunk, device=dev),
+                       torch.tensor(tab, device=dev),
+                       (u32_tensor(cb, dev), torch.tensor(ia, device=dev)),
+                       tscan.TrackState.init(cp, dp, device=dev))
+        assert tk.LAUNCHES["track_chunk_fused"] == before + (
+            dev.type == "cuda")
+        res[dev.type] = jax.tree.map(lambda t: t.cpu(), (st, out))
+    (gs, go), (rs, ro) = res["cuda"], res["cpu"]
+    np.testing.assert_array_equal(go.blksize.numpy(), ro.blksize.numpy())
+    np.testing.assert_array_equal(gs.corr.sample_pos.numpy(),
+                                  rs.corr.sample_pos.numpy())
+    for name in ACCS:
+        np.testing.assert_allclose(getattr(go, name).numpy(),
+                                   getattr(ro, name).numpy(),
+                                   rtol=2e-3, atol=2.0)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
+    """A CUDA call the kernel cannot take raises; it never runs the twin."""
+    C, blkp = 2, SIG.samples_per_code + 2
+    d = cuda_device
+    with pytest.raises(TypeError, match="pos0 dtype"):
+        tk.track_chunk_fused(
+            torch.zeros((8192, 2), device=d),
+            torch.zeros((C, 128, blkp), device=d),
+            torch.zeros((C,), dtype=torch.int64, device=d),
+            torch.zeros((C, tk.NF), device=d),
+            torch.zeros((C,), dtype=torch.int64, device=d),
+            torch.zeros((C,), dtype=torch.int64, device=d),
+            n_blocks=1, blkp=blkp, code_length=1023, phases_per_chip=64,
+            spacing=0.3, span_chips=1.0, base_code_step=0.5, fs=SIG.fs,
+            coefs=(1.0,) * 5)
