@@ -2,25 +2,46 @@
 
     python3 chip_smoke.py
 
-Drives the live GPS L1 C/A receiver's main path once on the card, through
-the entry points a user calls, at the benchmark configuration
-(bench.py::bench_manager): 2.048 Msps complex, 12 channels over an
-11-satellite geometry-true sky plus 2 absent PRNs in the pool, 500 ms
-epochs, 8-epoch superepochs, 2-bit sm2 wire resident on the card,
-prefetch pipeline, compact readback, 1 s reacquisition, and the online
-navigator (LNAV decode + LSQ PVT), over ~44 s of signal made by the
-port's simulator from a fixed seed.
+Drives the port's two live receiver paths once on the card, through the
+entry points a user calls, each with a sky and signal made by the port's
+simulator from a fixed seed:
+  * GPS L1 C/A at the benchmark configuration (bench.py::bench_manager):
+    2.048 Msps complex, 12 channels over an 11-satellite geometry-true sky
+    plus 2 absent PRNs in the pool, 500 ms epochs, 8-epoch superepochs,
+    2-bit sm2 wire resident on the card, prefetch pipeline, compact
+    readback, 1 s reacquisition, and the online navigator (LNAV decode +
+    LSQ PVT), over ~44 s of signal; it runs kernel K1;
+  * Galileo E1B: 4.2 Msps complex, 12 channels over an 8-satellite
+    geometry-true sky (tests/test_galileo.py's constellation) plus 2
+    absent PRNs, C/N0 48 dB-Hz, 500 ms epochs, 4-epoch superepochs, sm2
+    wire on the card, prefetch, compact readback, and the navigator
+    (I/NAV decode + LSQ PVT), over ~24 s of signal; it runs kernel K2.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: a CUDA card is required; its name and power limit;
-  2. build: the port's CUDA kernels from the sources in this checkout;
+  2. build: the port's CUDA kernels from the sources in this checkout,
+     one nvcc per source, started together;
   3. K1 on the card against its plain PyTorch twin (C=12 x 500 blocks and
      C=9 x 6 blocks, tests/test_track_kernel.py's tolerances);
   4. K1 time against the twin (CUDA events, C=12 x 1000 and x 500
      blocks) and the time of one on-chunk acquisition search;
-  5. the main path (warm-up run, then a measured run) with its
+  5. the GPS main path (warm-up run, then a measured run) with its
      end-to-end checks and K1's launch count;
+  6. K2's build record (ptxas registers and spill);
+  7. K2 on the card against its plain twin (C=12 x 125 blocks, the main
+     path's launch, and C=3 x 6 blocks) on a Galileo signal: blksize and
+     sample_pos exact, the other lanes within the tolerances of K2_TOL;
+  8. K2 time against the twin (CUDA events, C=12 x 125 and x 250 blocks);
+  9. the Galileo main path with its end-to-end checks and K2's launch
+     count;
 then the kernel record, the nvidia-smi line and the result line.
+
+Each kernel's bound is the larger of its bytes over 3.35 TB/s (the chunk,
+the tap rows this run's data selects, state and outputs, each once) and
+its f32 operations over 67 TFLOP/s (per sample and channel: 6 for the LO
+products, 6 for the wipeoff, 2 per accumulator, and K2's 5 tap products;
+the per-block sincos and loop filters are left out, under 1%), for the
+samples this run's blocks cover.
 """
 
 from __future__ import annotations
@@ -37,13 +58,17 @@ from gnsstpu_torch import (AcqConfig, NavConfig, ReceiverConfig,
                            SignalConfig, TrackConfig)
 from gnsstpu_torch.acquisition import search
 from gnsstpu_torch.device import u32_numpy, u32_tensor
-from gnsstpu_torch.ops import fft_acquire
+from gnsstpu_torch.ops import fft_acquire, nco
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.runtime import OnlineNavigator, Telemetry
 from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.sources import DevicePackedArraySource
 from gnsstpu_torch.sim import IFSimulator, SatParams
-from gnsstpu_torch.sim.scenario import bench_constellation, position_error_m
+from gnsstpu_torch.signals import galileo_e1
+from gnsstpu_torch.sim.scenario import (bench_constellation,
+                                        galileo_constellation,
+                                        position_error_m)
+from gnsstpu_torch.tracking import boc as tboc
 from gnsstpu_torch.tracking import fused as tfused
 from gnsstpu_torch.tracking import scan as tscan
 
@@ -51,6 +76,27 @@ SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 TRK = TrackConfig(dll_bw=1.0, el_spacing=0.3, pll_bw=25.0, fll_bw=250.0)
 K1_SOURCE = "gnsstpu_torch/csrc/track_fused.cu"
 K1_REPLACES = "gnsstpu/ops/track_kernel.py:274"
+GSIG = SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
+                    code_freq=galileo_e1.SUB_FREQ,
+                    code_length=galileo_e1.SUB_LENGTH)
+GTRK = TrackConfig(dll_bw=1.0, el_spacing=0.25, pll_bw=15.0, fll_bw=50.0,
+                   sll_bw=0.5, sll_spacing=0.25, aid_div=1540.0)
+K2_SOURCE = "gnsstpu_torch/csrc/track_boc_fused.cu"
+K2_REPLACES = "gnsstpu/ops/track_kernel.py:938"
+#: K2 against its twin: accumulators at K1's tolerances with the absolute
+#: part scaled to the 8x longer block (rtol 2e-3, atol 16); Doppler [Hz]
+#: and the code / meandr remainders [chips, half-chips] as K1's.
+K2_TOL = {"acc_rtol": 2e-3, "acc_atol": 16.0, "carr_doppler": 0.05,
+          "rem_code_phase": 5e-4, "rem_sub_phase": 5e-4}
+#: H100 SXM peaks: HBM bytes/s, f32 FLOP/s.
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+
+
+def ptxas(built) -> str:
+    """The ptxas register / spill lines of a kernel build."""
+    lines = [ln.strip() for ln in built.log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    return " / ".join(lines) if lines else "ptxas: no report (cached build)"
 
 
 def smi_line() -> str:
@@ -59,6 +105,23 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def bound(n_bytes: float, flops: float) -> tuple:
+    """(bound ms, 'bytes' or 'operations'): the least time the card could
+    take for this work on the published peaks."""
+    t_b, t_f = n_bytes / HBM_BPS, flops / F32_FLOPS
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def rows_used(rem0, rem_out, offs, ph, n_rows) -> np.ndarray:
+    """[C, n_blocks, len(offs)] table rows the blocks select: each
+    block's rows come from the remainder before it (rem0 [C], then the
+    previous block's rem_out [n_blocks, C])."""
+    rem = np.concatenate([rem0[None], rem_out[:-1]]).astype(np.float32)
+    rows = [np.clip(np.rint((rem + np.float32(o)) * np.float32(ph)), 0,
+                    n_rows - 1) for o in offs]
+    return np.stack(rows, axis=-1).transpose(1, 0, 2).astype(np.int64)
 
 
 def k1_inputs(C: int, n_blocks: int, device):
@@ -84,10 +147,11 @@ def k1_inputs(C: int, n_blocks: int, device):
     return args, tfused.kernel_kwargs(SIG, TRK, n_blocks=n_blocks)
 
 
-def k1_compare(C: int, n_blocks: int, device) -> dict:
+def k1_compare(C: int, n_blocks: int, device) -> tuple:
     """K1's wrapper against its plain twin on the same inputs on the
     card; raises on a breach of test_track_kernel.py's tolerances.
-    Returns the largest deviation of each checked quantity."""
+    Returns (largest deviation of each checked quantity, K1's bound at
+    this shape)."""
     args, kw = k1_inputs(C, n_blocks, device)
     k_out, _, k_pos, k_cph = tk.track_chunk_fused(*args, **kw)
     r_out, _, r_pos, r_cph = tk.track_chunk_fused_ref(*args, **kw)
@@ -114,7 +178,19 @@ def k1_compare(C: int, n_blocks: int, device) -> dict:
         np.testing.assert_allclose(ko[..., lane], ro[..., lane], rtol=0,
                                    atol=atol, err_msg=f"K1 C={C} {name}")
         dev[name] = float(np.max(np.abs(ko[..., lane] - ro[..., lane])))
-    return dev
+
+    chunk, tab, _, finit = args[:4]
+    k = tk._consts(**{n: kw[n] for n in ("code_length", "phases_per_chip",
+                                         "spacing", "span_chips",
+                                         "base_code_step", "fs",
+                                         "coefs")})
+    rows = rows_used(finit[:, tk._F_REM].cpu().numpy(), ro[..., tk.O_REM],
+                     k["row_off"], kw["phases_per_chip"], tab.shape[1])
+    n_rows = sum(len(np.unique(rows[c])) for c in range(C))
+    samples = float(ro[..., tk.O_BLKSIZE].sum())
+    n_bytes = (chunk.numel() * 4 + n_rows * kw["blkp"] * 4
+               + 2 * finit.numel() * 4 + ro.size * 4)
+    return dev, bound(n_bytes, 24.0 * samples)
 
 
 def k1_times(C: int, n_blocks: int, device, reps: int = 20) -> tuple:
@@ -189,7 +265,7 @@ class _Collector:
                                          + rec["wall_s"])
 
 
-def main_path(device) -> dict:
+def gps_main_path(device) -> dict:
     """The bench_manager configuration through the port's manager."""
     seconds, n_channels, epoch_ms, sync_every = 44, 12, 500, 8
     n_ms = seconds * 1000
@@ -254,6 +330,170 @@ def main_path(device) -> dict:
     return res
 
 
+def k2_inputs(C: int, n_blocks: int, device):
+    """K2's tensor and static arguments: C Galileo E1B satellites at
+    spread Dopplers and code phases from the port's simulator, the
+    trackers started 7 Hz off each truth."""
+    prns = [11, 4, 19, 27, 2, 8, 14, 30, 23, 5, 33, 36][:C]
+    sats = [SatParams(prn=p, doppler_hz=350.0 * i - 1900.0,
+                      code_phase_chips=611.0 * i + 57.25, cn0_dbhz=48.0)
+            for i, p in enumerate(prns)]
+    chunk = IFSimulator(GSIG, sats, noise_sigma=1.0, seed=6,
+                        device=device).generate_tensor(4 * n_blocks + 12)
+    spc = GSIG.samples_per_code
+    spchip = GSIG.fs / GSIG.code_freq
+    state0 = tboc.BocTrackState.init(
+        np.array([int(round(s.code_phase_chips * spchip)) % spc
+                  for s in sats]),
+        np.array([s.doppler_hz + 7.0 for s in sats], np.float32),
+        device=device)
+    ctab = torch.as_tensor(tboc.code_tap_rows(GSIG, GTRK, prns),
+                           device=device)
+    stab = torch.as_tensor(tboc.sub_tap_rows(GSIG, GTRK), device=device)
+    cb = u32_tensor(np.full(C, nco.freq_to_step_u32(GSIG.if_freq, GSIG.fs)),
+                    device)
+    args = tboc.boc_kernel_inputs(chunk, ctab, stab, cb, state0, GTRK)
+    return args, tboc.boc_kernel_kwargs(GSIG, GTRK, n_blocks=n_blocks)
+
+
+def k2_compare(C: int, n_blocks: int, device) -> tuple:
+    """K2's wrapper against its plain twin on the same inputs on the card;
+    raises on a breach of K2_TOL. Returns (largest deviation of each
+    checked quantity, K2's bound at this shape)."""
+    args, kw = k2_inputs(C, n_blocks, device)
+    k_out, _, k_pos, k_cph = tk.track_chunk_boc_fused(*args, **kw)
+    r_out, _, r_pos, r_cph = tk.track_chunk_boc_fused_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(k_out[..., tk.OB_BLKSIZE], r_out[..., tk.OB_BLKSIZE]):
+        raise AssertionError(f"K2 C={C}: blksize differs from the twin")
+    if not torch.equal(k_pos, r_pos):
+        raise AssertionError(f"K2 C={C}: sample_pos differs from the twin")
+    dev = {"blksize_sample_pos": "exact"}
+    blkp = kw["blkp"]
+    dph = u32_numpy(k_cph).astype(np.int64) - u32_numpy(r_cph).astype(
+        np.int64)
+    dph = (dph + 2 ** 31) % 2 ** 32 - 2 ** 31
+    dev["carr_phase_lsb"] = int(np.max(np.abs(dph)))
+    if dev["carr_phase_lsb"] > n_blocks * blkp:
+        raise AssertionError(f"K2 C={C}: carrier phase beyond one LSB "
+                             "step per block")
+    ko, ro = k_out.cpu().numpy(), r_out.cpu().numpy()
+    lanes = list(tk.OB_ACCS)
+    np.testing.assert_allclose(ko[..., lanes], ro[..., lanes],
+                               rtol=K2_TOL["acc_rtol"],
+                               atol=K2_TOL["acc_atol"],
+                               err_msg=f"K2 C={C} accumulators")
+    dev["acc_abs"] = float(np.max(np.abs(ko[..., lanes] - ro[..., lanes])))
+    dev["acc_scale"] = float(np.max(np.abs(ro[..., lanes])))
+    for name, lane in (("carr_doppler", tk.OB_CARR_DOPPLER),
+                       ("rem_code_phase", tk.OB_REM),
+                       ("rem_sub_phase", tk.OB_REM_SUB)):
+        np.testing.assert_allclose(ko[..., lane], ro[..., lane], rtol=0,
+                                   atol=K2_TOL[name],
+                                   err_msg=f"K2 C={C} {name}")
+        dev[name] = float(np.max(np.abs(ko[..., lane] - ro[..., lane])))
+
+    chunk, ctab, stab, _, finit = args[:5]
+    k = tk._boc_consts(**{n: kw[n] for n in (
+        "code_length", "sub_length", "ph_code", "ph_sub", "span_code",
+        "span_sub", "base_code_step", "base_sub_step", "fs", "coefs")})
+    f0 = finit.cpu().numpy()
+    code_rows = rows_used(f0[:, tk._F_REM], ro[..., tk.OB_REM],
+                          [k["span_code"]], k["ph_code"], ctab.shape[1])
+    sub_rows = rows_used(f0[:, tk._F_REM_SUB], ro[..., tk.OB_REM_SUB],
+                         [k["span_sub"]], k["ph_sub"], stab.shape[0])
+    n_rows = (sum(len(np.unique(code_rows[c])) for c in range(C))
+              + len(np.unique(sub_rows)))
+    samples = float(ro[..., tk.OB_BLKSIZE].sum())
+    n_bytes = (chunk.numel() * 4 + n_rows * 3 * blkp * 4
+               + 2 * finit.numel() * 4 + ro.size * 4)
+    return dev, bound(n_bytes, 37.0 * samples)
+
+
+def k2_times(C: int, n_blocks: int, device, reps: int = 20) -> tuple:
+    """(kernel ms, plain twin ms) per call on the same inputs, timed with
+    CUDA events after a warm-up call of each."""
+    args, kw = k2_inputs(C, n_blocks, device)
+
+    def timed(fn, n):
+        fn(*args, **kw)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            fn(*args, **kw)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / n
+
+    return (timed(tk.track_chunk_boc_fused, reps),
+            timed(tk.track_chunk_boc_fused_ref, 1))
+
+
+def galileo_main_path(device) -> dict:
+    """The live Galileo E1B receiver through the port's manager."""
+    seconds, n_channels, epoch_ms, sync_every = 24, 12, 500, 4
+    n_ms = seconds * 1000
+    sats, prns, recv, _ = galileo_constellation(
+        GSIG, 8, duration_s=seconds + 1.0, cn0_dbhz=48.0)
+    t0 = time.perf_counter()
+    buf = IFSimulator(GSIG, sats, noise_sigma=1.0, seed=23,
+                      device=device).generate(n_ms + 800)
+    src = DevicePackedArraySource(buf, fmt="sm2", scale=1.0, device=device)
+    del buf
+    setup_s = time.perf_counter() - t0
+    absent = [p for p in range(1, galileo_e1.NUM_PRN + 1)
+              if p not in prns][:2]
+    pool = prns + absent
+    cfg = ReceiverConfig(
+        signal=GSIG,
+        acq=AcqConfig(doppler_band=9e3, coherent_ms=1, threshold=2.2,
+                      doppler_step=75.0, prn_list=tuple(pool)),
+        track=GTRK,
+        nav=NavConfig(sol_period_ms=500, elevation_mask_deg=10.0,
+                      use_tropo=False),
+        n_channels=n_channels)
+    navr = OnlineNavigator(GSIG, cfg.nav, retry_ms=800, mode="lsq")
+    coll = _Collector()
+    tlm = Telemetry(sink=None)
+    tlm.subscribe(coll)
+    warm_ms = 2 * sync_every * epoch_ms
+    tk.reset_launches()
+    mgr = ChannelManager(
+        src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
+        reacq_period_ms=2000, sync_every=sync_every, navigator=navr,
+        prn_pool=pool, prefetch=True, readback="compact", engine="auto")
+    mgr.run(warm_ms)
+    meas_ms = n_ms - warm_ms - 2 * epoch_ms
+    coll.enabled = True
+    t0 = time.perf_counter()
+    recs = mgr.run(meas_ms)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    coll.enabled = False
+    launches = dict(tk.LAUNCHES)
+    err = [float(np.linalg.norm([s["x"] - recv[0], s["y"] - recv[1],
+                                 s["z"] - recv[2]]))
+           for s in navr.solutions]
+    return {
+        "realtime_factor_overall": meas_ms / 1000.0 / (t1 - t0),
+        "measured_ms": meas_ms,
+        "wall_s": t1 - t0,
+        "signal_setup_s": setup_s,
+        "engine": mgr.engine,
+        "sky_prns": prns,
+        "decoded_prns": sorted(navr.decoded),
+        "live_channels_at_end": int(sum(1 for p in recs[-1].prn if p)),
+        "pvt_solutions": len(navr.solutions),
+        "mean_3d_err_m": float(np.mean(err)) if err else None,
+        "k2_launches": launches["track_chunk_boc_fused"],
+        "k1_launches": launches["track_chunk_fused"],
+        "stage_wall_s": {k: round(v, 4) for k, v in
+                         sorted(coll.stages.items())},
+    }
+
+
 def main() -> int:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -265,15 +505,18 @@ def main() -> int:
     print(f"[1 device] {name} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. Build.
-    built = tk.build()
-    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
-    print(f"[2 build] K1 {built.path.name} built in {built.build_s:.2f} s; "
-          f"{regs[0] if regs else 'ptxas: no register report'}", flush=True)
+    # 2. Build (every kernel, one nvcc per source, started together).
+    t0 = time.perf_counter()
+    built = tk.build_all()
+    build_wall = time.perf_counter() - t0
+    k1b = built["track_chunk_fused"]
+    print(f"[2 build] both kernels in {build_wall:.2f} s wall; K1 "
+          f"{k1b.path.name} built in {k1b.build_s:.2f} s; "
+          f"{ptxas(k1b)}", flush=True)
 
     # 3. K1 against its plain twin on the card.
-    dev500 = k1_compare(12, 500, dev)
-    dev6 = k1_compare(9, 6, dev)
+    dev500, (k1_bound_ms, k1_bound_by) = k1_compare(12, 500, dev)
+    dev6, _ = k1_compare(9, 6, dev)
     print(f"[3 K1 parity] C=12x500: {json.dumps(dev500)} | C=9x6: "
           f"{json.dumps(dev6)}", flush=True)
 
@@ -287,8 +530,8 @@ def main() -> int:
           f"on-chunk acquisition search {acq_search_ms(dev):.3f} ms",
           flush=True)
 
-    # 5. Main path.
-    res = main_path(dev)
+    # 5. GPS main path.
+    res = gps_main_path(dev)
     print(f"[5 main path] {json.dumps(res)}", flush=True)
     checks = {
         "live_channels_at_end >= 10": res["live_channels_at_end"] >= 10,
@@ -302,11 +545,67 @@ def main() -> int:
     if failed:
         raise AssertionError(f"main path checks failed: {failed}")
 
-    print(json.dumps({"kernels": [{
-        "name": "track_chunk_fused", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": res["k1_launches"],
-        "max_abs_err": dev500["acc_abs"], "ms": k500_ms,
-        "plain_ms": p500_ms}]}), flush=True)
+    # 6. K2 build record.
+    k2b = built["track_chunk_boc_fused"]
+    rows_c = tboc.code_tap_rows(GSIG, GTRK, [1]).shape[1]
+    rows_s = tboc.sub_tap_rows(GSIG, GTRK).shape[0]
+    bp = -(-(GSIG.samples_per_code + 2) // 128) * 128
+    tab_mb = 4e-6 * 3 * (GSIG.samples_per_code + 2) * (12 * rows_c + rows_s)
+    tpu_mb = 4e-6 * 8 * bp * (12 * rows_c + rows_s)
+    print(f"[6 K2 build] {k2b.path.name} built in {k2b.build_s:.2f} s "
+          f"(in parallel with K1); {ptxas(k2b)}; tap tables at C=12: "
+          f"{tab_mb:.1f} MB (E/P/L planes) against {tpu_mb:.1f} MB in the "
+          f"TPU layout", flush=True)
+
+    # 7. K2 against its plain twin on the card.
+    g125, (k2_bound_ms, k2_bound_by) = k2_compare(12, 125, dev)
+    g6, _ = k2_compare(3, 6, dev)
+    print(f"[7 K2 parity] tolerances {json.dumps(K2_TOL)} | C=12x125: "
+          f"{json.dumps(g125)} | C=3x6: {json.dumps(g6)}", flush=True)
+
+    # 8. K2 time against the twin.
+    k2_ms, k2p_ms = k2_times(12, 125, dev)
+    k2l_ms, k2lp_ms = k2_times(12, 250, dev)
+    print(f"[8 K2 time] C=12x125 blocks (0.500 s of signal): kernel "
+          f"{k2_ms:.4f} ms (real-time factor {500.0 / k2_ms:.1f}), plain "
+          f"twin {k2p_ms:.2f} ms; C=12x250 (1.000 s): kernel "
+          f"{k2l_ms:.4f} ms (real-time factor {1000.0 / k2l_ms:.1f}), twin "
+          f"{k2lp_ms:.2f} ms; bound at C=12x125 {k2_bound_ms:.5f} ms "
+          f"({k2_bound_by})", flush=True)
+
+    # 9. Galileo main path.
+    gres = galileo_main_path(dev)
+    print(f"[9 galileo main path] {json.dumps(gres)}", flush=True)
+    sky = gres["sky_prns"]
+    refused = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "gnsstpu"))
+    gchecks = {
+        "every sky SV decoded": set(sky) <= set(gres["decoded_prns"]),
+        "pvt_solutions >= 10": gres["pvt_solutions"] >= 10,
+        "mean_3d_err_m < 30": (gres["mean_3d_err_m"] is not None
+                               and gres["mean_3d_err_m"] < 30.0),
+        "live_channels_at_end >= sky - 1":
+            gres["live_channels_at_end"] >= len(sky) - 1,
+        "k2_launches > 0": gres["k2_launches"] > 0,
+        "no jax or gnsstpu module loaded": not refused,
+    }
+    failed = [k for k, ok in gchecks.items() if not ok]
+    if failed:
+        raise AssertionError(f"galileo main path checks failed: {failed} "
+                             f"(modules: {refused[:5]})")
+
+    print(json.dumps({"kernels": [
+        {"name": "track_chunk_fused", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": res["k1_launches"],
+         "max_abs_err": dev500["acc_abs"], "ms": k500_ms,
+         "plain_ms": p500_ms, "bound_ms": k1_bound_ms,
+         "bound_by": k1_bound_by, "library_ms": None},
+        {"name": "track_chunk_boc_fused", "route": "cuda",
+         "source": K2_SOURCE, "replaces": K2_REPLACES,
+         "launches": gres["k2_launches"], "max_abs_err": g125["acc_abs"],
+         "ms": k2_ms, "plain_ms": k2p_ms, "bound_ms": k2_bound_ms,
+         "bound_by": k2_bound_by, "library_ms": None},
+    ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

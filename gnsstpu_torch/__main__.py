@@ -17,8 +17,8 @@ import sys
 
 
 def _sig_config(args):
-    from gnsstpu.config import SignalConfig
-    from gnsstpu.signals.registry import get_signal
+    from gnsstpu_torch.config import SignalConfig
+    from gnsstpu_torch.signals.registry import get_signal
 
     sd = get_signal(args.signal)
     return SignalConfig(signal=args.signal, fs=args.fs,
@@ -44,8 +44,8 @@ def _refuse_unported(args) -> None:
 
 
 def cmd_track(args) -> int:
-    from gnsstpu.config import AcqConfig, ReceiverConfig, TrackConfig
-    from gnsstpu.runtime.telemetry import Telemetry
+    from gnsstpu_torch.config import AcqConfig, ReceiverConfig, TrackConfig
+    from gnsstpu_torch.runtime.telemetry import Telemetry
     from gnsstpu_torch.runtime.manager import ChannelManager
     from gnsstpu_torch.runtime.sources import FileSource
 
@@ -61,12 +61,12 @@ def cmd_track(args) -> int:
                      skip_samples=args.skip_samples)
     bus = None
     if args.commands:
-        from gnsstpu.runtime.console import CommandBus
+        from gnsstpu_torch.runtime.console import CommandBus
         bus = CommandBus(args.commands)
     navr = None
     if args.navigate:
-        from gnsstpu.config import NavConfig
-        from gnsstpu.runtime.navigator import OnlineNavigator
+        from gnsstpu_torch.config import NavConfig
+        from gnsstpu_torch.runtime.navigator import OnlineNavigator
         navcfg = NavConfig(use_iono=args.use_iono,
                            carrier_smoothing_s=args.carrier_smoothing)
         navr = OnlineNavigator(sig, navcfg, mode=args.navigate,
@@ -126,7 +126,8 @@ def main(argv=None) -> int:
     p.add_argument("--log", default=None, help="telemetry JSONL path")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "fused", "gather", "table"],
-                   help="tracking engine (auto = fused, the K1 kernel)")
+                   help="tracking engine (auto = fused: kernel K1, or K2 "
+                        "for galileo_e1b)")
     p.add_argument("--sync-every", type=int, default=1)
     p.add_argument("--prefetch", action="store_true")
     p.add_argument("--readback", default="f32",

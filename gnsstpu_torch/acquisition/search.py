@@ -15,8 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from gnsstpu.config import AcqConfig, SignalConfig
-from gnsstpu.signals.registry import get_signal
+from gnsstpu_torch.config import AcqConfig, SignalConfig
+from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.device import resolve_device
 from gnsstpu_torch.ops import fft_acquire
 
@@ -59,7 +59,7 @@ def refine_doppler(samples_iq: np.ndarray, sig: SignalConfig, prn: int,
     k_ms code periods, square each period's prompt to strip data flips,
     and estimate the residual from the mean phase advance. Returns the
     refined absolute carrier frequency [Hz]."""
-    from gnsstpu.ops import code_tables
+    from gnsstpu_torch.ops import code_tables
 
     spc = sig.samples_per_code
     n = k_ms * spc
@@ -105,10 +105,12 @@ def stack_windows(samples: torch.Tensor, spc: int, acq: AcqConfig
 
 
 def acquire(samples_iq: np.ndarray, sig: SignalConfig, acq: AcqConfig, *,
-            device="cpu") -> AcqResults:
+            device="cuda") -> AcqResults:
     """Search all PRNs of sig.signal in the leading samples on `device`.
 
     samples_iq: f32 [N >= acq_samples_needed(sig, acq), 2] host samples.
+    device: 'cuda' (the default; raises on a host without a card) or
+    'cpu'.
     """
     sd = get_signal(sig.signal)
     if sd.fdma_zero_prn is not None:

@@ -2,7 +2,8 @@
 
 Each kernel source in gnsstpu_torch/csrc/ has a plain C interface and is
 compiled with nvcc for Hopper (sm_90a) into `build/kernels/` at the root
-of the checkout, at first use, then loaded with ctypes. The library name
+of the checkout, at first use, then loaded with ctypes; load_many()
+starts one nvcc per source, all together. The library name
 carries a hash of the source, so an edited kernel never loads a stale
 build. Nothing here runs at import time: this module is imported on
 machines without nvcc or a GPU.
@@ -57,29 +58,53 @@ def nvcc_path() -> str:
     return found
 
 
+def _target(source: str) -> Path:
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
 def load(source: str) -> BuiltLibrary:
     """Compile csrc/<source> (if not built yet) and load it."""
+    return load_many([source])[0]
+
+
+def load_many(sources) -> list:
+    """Compile every csrc/<source> not built yet, one nvcc process per
+    source, all started together, then load them all. Returns their
+    BuiltLibrary records in the order given."""
     with _lock:
-        if source in _libs:
-            return _libs[source]
-        src = CSRC / source
-        digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:12]
-        out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
-        seconds, log = 0.0, ""
-        if not out.exists():
+        todo = [s for s in dict.fromkeys(sources) if s not in _libs]
+        procs = {}
+        for source in todo:
+            out = _target(source)
+            if out.exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True, timeout=600)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-            os.replace(tmp, out)
-        built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
-        _libs[source] = built
-        return built
+            procs[source] = (time.perf_counter(), tmp, subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        records = {}
+        try:
+            for source, (t0, tmp, proc) in procs.items():
+                log = proc.communicate(timeout=600)[0]
+                records[source] = (time.perf_counter() - t0, log)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {source}:\n{log}")
+                os.replace(tmp, _target(source))
+        finally:
+            for _, _, proc in procs.values():     # none left running
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for source in todo:
+            out = _target(source)
+            seconds, log = records.get(source, (0.0, ""))
+            _libs[source] = BuiltLibrary(ctypes.CDLL(str(out)), out,
+                                         seconds, log)
+        return [_libs[s] for s in sources]

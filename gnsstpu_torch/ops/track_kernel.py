@@ -1,14 +1,16 @@
-"""K1: the fused single-code tracking kernel (port of
-gnsstpu/ops/track_kernel.py::track_chunk_fused).
+"""The fused tracking kernels (port of gnsstpu/ops/track_kernel.py).
 
-`track_chunk_fused` runs all n_blocks code periods of C channels in one
-launch of the hand-written CUDA kernel csrc/track_fused.cu (see the note
-there for what bounds it on an H100). `track_chunk_fused_ref` is its plain
-PyTorch twin: the same algorithm with the block loop in Python, channels
-batched. The wrapper takes the twin only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+K1 `track_chunk_fused` (single-code DLL / FLL-assisted PLL: GPS L1 C/A,
+GLONASS L1/L2 OF, BeiDou B1I) and K2 `track_chunk_boc_fused` (the Galileo
+E1B BOC(1,1) double estimator) each run all n_blocks code periods of C
+channels in one launch of a hand-written CUDA kernel (csrc/track_fused.cu,
+csrc/track_boc_fused.cu; see the notes there for what bounds them on an
+H100). `track_chunk_fused_ref` and `track_chunk_boc_fused_ref` are their
+plain PyTorch twins: the same algorithm with the block loop in Python,
+channels batched. A wrapper takes its twin only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises.
 
-Layouts (the reference's, with the chunk kept [N, 2] and u32 values in
+K1 layouts (the reference's, with the chunk kept [N, 2] and u32 values in
 int64 tensors):
   chunk     f32 [N, 2]        I/Q samples shared by all channels
   tab       f32 [C, R, blkp]  phase-row code tables (fused_code_table)
@@ -19,6 +21,13 @@ int64 tensors):
 Outputs:
   out f32 [n_blocks, C, 16] (O_* lanes), ffin f32 [C, 16], pos i32 [C],
   cphase i64 [C] (u32 values).
+
+K2 takes the same chunk / pos0 / finit (with the _F_*_SUB lanes) / cinit /
+carrbase and two tap tables, E/P/L planes of the reference's
+[.., 8, BP] tables without the TPU's padding planes and lanes:
+  ctab      f32 [C, Rc, 3, blkp]  per-channel primary-code tap rows
+  stab      f32 [Rs, 3, blkp]     shared meandr (subcarrier) tap rows
+and returns out f32 [n_blocks, C, 24] (OB_* lanes), ffin, pos, cphase.
 """
 
 from __future__ import annotations
@@ -42,10 +51,23 @@ NF = 16
     range(14)
 NOUT = 16
 
+# K2: extra float-state lanes for the second (subcarrier) estimator.
+_F_REM_SUB, _F_SUB_DELTA, _F_SLL_NCO, _F_OLD_SLL_ERR, _F_INV_AID_SUB = \
+    range(11, 16)
+# K2 output lanes (accumulator order as ops.boc.BocBlockOut).
+(OB_IEP, OB_QEP, OB_IPE, OB_QPE, OB_IPP, OB_QPP, OB_IPL, OB_QPL,
+ OB_ILP, OB_QLP, OB_CARR_DOPPLER, OB_CODE_FREQ_DELTA, OB_SUB_FREQ_DELTA,
+ OB_REM, OB_REM_SUB, OB_BLKSIZE, OB_DLL_DISC, OB_SLL_DISC,
+ OB_PLL_DISC) = range(19)
+NOUT_B = 24
+#: The ten K2 accumulator lanes, in output order.
+OB_ACCS = tuple(range(OB_IEP, OB_QLP + 1))
+
 SOURCE = "track_fused.cu"
+BOC_SOURCE = "track_boc_fused.cu"
 #: Kernel launches since the last reset (plain count; CPU runs of the
-#: plain twin are not launches).
-LAUNCHES = {"track_chunk_fused": 0}
+#: plain twins are not launches).
+LAUNCHES = {"track_chunk_fused": 0, "track_chunk_boc_fused": 0}
 
 
 def reset_launches() -> None:
@@ -73,6 +95,38 @@ def _consts(*, code_length, phases_per_chip, spacing, span_chips,
         c_dll_p=f32(c_dll_p), c_dll_i=f32(c_dll_i))
 
 
+def env_err(ie, qe, il, ql):
+    """Normalized early-minus-late envelope discriminator
+    (|E| - |L|) / max(|E| + |L|, 1e-10), the DLL's and the SLL's."""
+    e_env = torch.sqrt(ie * ie + qe * qe)
+    l_env = torch.sqrt(il * il + ql * ql)
+    return (e_env - l_env) / torch.clamp(e_env + l_env, min=1e-10)
+
+
+def _factored_lo(ph, cstep, blkp: int, ang_scale: float):
+    """The kernels' exact-u32 factored LO for one block, k = 64 a + r:
+    cos/sin of the coarse angles (phase + a * 64 * step) and the fine
+    angles (r * step), each from the int32 view of the u32 phase,
+    combined by the angle-sum products. ph, cstep: int64 [C] u32 values.
+    Returns (lo_c, lo_s) f32 [C, blkp]."""
+    dev = ph.device
+    ia = torch.arange(-(-blkp // 64), dtype=torch.int64, device=dev)
+    ir = torch.arange(64, dtype=torch.int64, device=dev)
+    ka = (ph[:, None] + ia[None, :] * ((cstep * 64) & U32_MASK)[:, None]
+          ) & U32_MASK
+    kr = (ir[None, :] * cstep[:, None]) & U32_MASK
+    aa = u32_to_i32(ka).to(torch.float32) * ang_scale
+    ar = u32_to_i32(kr).to(torch.float32) * ang_scale
+    ca, sa = torch.cos(aa), torch.sin(aa)
+    cr, sr = torch.cos(ar), torch.sin(ar)
+    C = ph.shape[0]
+    lo_c = (ca[:, :, None] * cr[:, None, :]
+            - sa[:, :, None] * sr[:, None, :]).reshape(C, -1)[:, :blkp]
+    lo_s = (sa[:, :, None] * cr[:, None, :]
+            + ca[:, :, None] * sr[:, None, :]).reshape(C, -1)[:, :blkp]
+    return lo_c, lo_s
+
+
 def track_chunk_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
                           n_blocks: int, blkp: int, code_length: int,
                           phases_per_chip: int, spacing: float,
@@ -89,8 +143,6 @@ def track_chunk_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
     ph = cinit.clone()
     pos = pos0.to(torch.int64)
     kk = torch.arange(blkp, device=dev)
-    ia = torch.arange(-(-blkp // 64), dtype=torch.int64, device=dev)
-    ir = torch.arange(64, dtype=torch.int64, device=dev)
     ch = torch.arange(C, device=dev)
     outs = []
     for _ in range(n_blocks):
@@ -110,18 +162,7 @@ def track_chunk_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
         xi, xq = win[..., 0], win[..., 1]
         mask = (kk[None, :] < blk[:, None]).to(torch.float32)
 
-        # Exact-u32 factored LO, angles from the int32 view of the phase.
-        ka = (ph[:, None] + ia[None, :] * ((cstep * 64) & U32_MASK)[:, None]
-              ) & U32_MASK
-        kr = (ir[None, :] * cstep[:, None]) & U32_MASK
-        aa = u32_to_i32(ka).to(torch.float32) * k["ang_scale"]
-        ar = u32_to_i32(kr).to(torch.float32) * k["ang_scale"]
-        ca, sa = torch.cos(aa), torch.sin(aa)
-        cr, sr = torch.cos(ar), torch.sin(ar)
-        lo_c = (ca[:, :, None] * cr[:, None, :]
-                - sa[:, :, None] * sr[:, None, :]).reshape(C, -1)[:, :blkp]
-        lo_s = (sa[:, :, None] * cr[:, None, :]
-                + ca[:, :, None] * sr[:, None, :]).reshape(C, -1)[:, :blkp]
+        lo_c, lo_s = _factored_lo(ph, cstep, blkp, k["ang_scale"])
         bb_i = (xi * lo_c + xq * lo_s) * mask
         bb_q = (xq * lo_c - xi * lo_s) * mask
         e_rows, p_rows, l_rows = (tab[ch, r] for r in rows)
@@ -142,9 +183,7 @@ def track_chunk_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
         carr_nco = (st[:, _F_CARR_NCO] + k["k1"] * carr_err
                     - k["k2"] * st[:, _F_OLD_CARR_ERR] - k["k3"] * freq_err)
         carr_delta = st[:, _F_DOPPLER_BASIS] + carr_nco
-        e_env = torch.sqrt(ie * ie + qe * qe)
-        l_env = torch.sqrt(il * il + ql * ql)
-        code_err = (e_env - l_env) / torch.clamp(e_env + l_env, min=1e-10)
+        code_err = env_err(ie, qe, il, ql)
         code_nco = (st[:, _F_CODE_NCO]
                     + k["c_dll_p"] * (code_err - st[:, _F_OLD_CODE_ERR])
                     + code_err * k["c_dll_i"])
@@ -184,12 +223,6 @@ def _lib():
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return built
-
-
-def build():
-    """Build (or load) K1's library; returns its cuda_build.BuiltLibrary
-    (path, build seconds, nvcc/ptxas log)."""
-    return _lib()
 
 
 def _check(name, t, dtype, shape, dev):
@@ -254,4 +287,223 @@ def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
         msg = built.lib.track_fused_error_string(rc).decode()
         raise RuntimeError(f"track_chunk_fused launch failed: {msg} ({rc})")
     LAUNCHES["track_chunk_fused"] += 1
+    return out, ffin, pos, cph
+
+
+# ---------------------------------------------------------------------------
+# K2: the BOC double-estimator fused kernel (Galileo E1B).
+# ---------------------------------------------------------------------------
+
+#: K2's f32 constants, in the order csrc/track_boc_fused.cu reads them.
+BOC_CONSTS = ("code_length", "sub_length", "base_code_step",
+              "base_sub_step", "inv_fs", "nco_scale", "ph_code", "ph_sub",
+              "span_code", "span_sub", "ang_scale", "inv_pi", "inv_2pi",
+              "k1", "k2", "k3", "c_dll_p", "c_dll_i", "c_sll_p", "c_sll_i")
+
+
+def _boc_consts(*, code_length, sub_length, ph_code, ph_sub, span_code,
+                span_sub, base_code_step, base_sub_step, fs, coefs):
+    """K2's f32 constants, rounded from Python doubles exactly as the
+    reference rounds its closure constants."""
+    k1, k2, k3, c_dll_p, c_dll_i, c_sll_p, c_sll_i = coefs
+    return dict(
+        code_length=f32(code_length), sub_length=f32(sub_length),
+        base_code_step=f32(base_code_step),
+        base_sub_step=f32(base_sub_step),
+        inv_fs=f32(1.0 / fs), nco_scale=f32(4294967296.0 / fs),
+        ph_code=f32(float(ph_code)), ph_sub=f32(float(ph_sub)),
+        span_code=f32(span_code), span_sub=f32(span_sub),
+        ang_scale=f32(2.0 * np.pi / 4294967296.0),
+        inv_pi=f32(1.0 / np.pi), inv_2pi=f32(1.0 / (2.0 * np.pi)),
+        k1=f32(k1), k2=f32(k2), k3=f32(k3),
+        c_dll_p=f32(c_dll_p), c_dll_i=f32(c_dll_i),
+        c_sll_p=f32(c_sll_p), c_sll_i=f32(c_sll_i))
+
+
+def track_chunk_boc_fused_ref(chunk, ctab, stab, pos0, finit, cinit,
+                              carrbase, *, n_blocks: int, blkp: int,
+                              code_length: int, sub_length: int,
+                              ph_code: int, ph_sub: int, span_code: float,
+                              span_sub: float, base_code_step: float,
+                              base_sub_step: float, fs: float, coefs):
+    """Plain PyTorch version of K2 (same algorithm, block loop in Python).
+    coefs = (k1, k2, k3, c_dll_p, c_dll_i, c_sll_p, c_sll_i)."""
+    k = _boc_consts(code_length=code_length, sub_length=sub_length,
+                    ph_code=ph_code, ph_sub=ph_sub, span_code=span_code,
+                    span_sub=span_sub, base_code_step=base_code_step,
+                    base_sub_step=base_sub_step, fs=fs, coefs=coefs)
+    dev = chunk.device
+    C, Rc, Rs = ctab.shape[0], ctab.shape[1], stab.shape[0]
+    n = chunk.shape[0]
+    st = finit.clone()
+    ph = cinit.clone()
+    pos = pos0.to(torch.int64)
+    kk = torch.arange(blkp, device=dev)
+    ch = torch.arange(C, device=dev)
+    outs = []
+    for _ in range(n_blocks):
+        rem, rem_s = st[:, _F_REM], st[:, _F_REM_SUB]
+        step_c = k["base_code_step"] + st[:, _F_CODE_DELTA] * k["inv_fs"]
+        step_s = k["base_sub_step"] + st[:, _F_SUB_DELTA] * k["inv_fs"]
+        blkf = torch.ceil((k["code_length"] - rem) / step_c)
+        blk = torch.clamp(blkf.to(torch.int64), 1, blkp)
+        cstep = (carrbase + torch.round(st[:, _F_CARR_DELTA]
+                                        * k["nco_scale"]).to(torch.int64)
+                 ) & U32_MASK
+        row_c = torch.clamp(torch.round((rem + k["span_code"])
+                                        * k["ph_code"]).to(torch.int64),
+                            0, Rc - 1)
+        row_s = torch.clamp(torch.round((rem_s + k["span_sub"])
+                                        * k["ph_sub"]).to(torch.int64),
+                            0, Rs - 1)
+
+        # Samples outside the chunk read as zero, as in the kernel.
+        idx = pos[:, None] + kk[None, :]
+        inside = ((idx >= 0) & (idx < n)).to(torch.float32)
+        win = chunk[torch.clamp(idx, 0, n - 1)]            # [C, blkp, 2]
+        xi, xq = win[..., 0] * inside, win[..., 1] * inside
+        mask = (kk[None, :] < blk[:, None]).to(torch.float32)
+        lo_c, lo_s = _factored_lo(ph, cstep, blkp, k["ang_scale"])
+        bb_i = (xi * lo_c + xq * lo_s) * mask
+        bb_q = (xq * lo_c - xi * lo_s) * mask
+        code_e, code_p, code_l = ctab[ch, row_c].unbind(1)  # [C, blkp]
+        sub_e, sub_p, sub_l = stab[row_s].unbind(1)
+        accs = []
+        for t in (sub_e * code_p, sub_p * code_e, sub_p * code_p,
+                  sub_p * code_l, sub_l * code_p):
+            accs += [(t * bb_i).sum(1), (t * bb_q).sum(1)]
+        iep, qep, ipe, qpe, ipp, qpp, ipl, qpl, ilp, qlp = accs
+
+        ip_prev, qp_prev = st[:, _F_IP_PREV], st[:, _F_QP_PREV]
+        cross = ipp * qp_prev - ip_prev * qpp
+        dot = ipp * ip_prev + qpp * qp_prev
+        safe = torch.where(torch.abs(dot) < 1e-30,
+                           torch.where(dot < 0, torch.full_like(dot, -1e-30),
+                                       torch.full_like(dot, 1e-30)), dot)
+        freq_err = torch.atan(cross / safe) * k["inv_pi"]
+        denom = torch.where(torch.abs(ipp) < 1e-10,
+                            torch.full_like(ipp, 1e-10), ipp)
+        carr_err = torch.atan(qpp / denom) * k["inv_2pi"]
+        carr_nco = (st[:, _F_CARR_NCO] + k["k1"] * carr_err
+                    - k["k2"] * st[:, _F_OLD_CARR_ERR] - k["k3"] * freq_err)
+        carr_delta = st[:, _F_DOPPLER_BASIS] + carr_nco
+        code_err = env_err(ipe, qpe, ipl, qpl)
+        code_nco = (st[:, _F_CODE_NCO]
+                    + k["c_dll_p"] * (code_err - st[:, _F_OLD_CODE_ERR])
+                    + code_err * k["c_dll_i"])
+        code_delta = -code_nco + carr_delta * st[:, _F_INV_AID]
+        sll_err = env_err(iep, qep, ilp, qlp)
+        sll_nco = (st[:, _F_SLL_NCO]
+                   + k["c_sll_p"] * (sll_err - st[:, _F_OLD_SLL_ERR])
+                   + sll_err * k["c_sll_i"])
+        sub_delta = -sll_nco + carr_delta * st[:, _F_INV_AID_SUB]
+        bsf = blk.to(torch.float32)
+        new_rem = rem + bsf * step_c - k["code_length"]
+        new_rem_s = rem_s + bsf * step_s - k["sub_length"]
+
+        zero = torch.zeros_like(ipp)
+        outs.append(torch.stack(
+            accs + [carr_delta, code_delta, sub_delta, new_rem, new_rem_s,
+                    bsf, code_err, sll_err, carr_err]
+            + [zero] * (NOUT_B - 19), dim=1))
+        st = st.clone()
+        for lane, v in ((_F_REM, new_rem), (_F_REM_SUB, new_rem_s),
+                        (_F_CODE_DELTA, code_delta),
+                        (_F_SUB_DELTA, sub_delta),
+                        (_F_CARR_DELTA, carr_delta), (_F_CARR_NCO, carr_nco),
+                        (_F_OLD_CARR_ERR, carr_err), (_F_CODE_NCO, code_nco),
+                        (_F_OLD_CODE_ERR, code_err), (_F_SLL_NCO, sll_nco),
+                        (_F_OLD_SLL_ERR, sll_err), (_F_IP_PREV, ipp),
+                        (_F_QP_PREV, qpp)):
+            st[:, lane] = v
+        ph = (ph + blk * cstep) & U32_MASK
+        pos = pos + blk
+    out = (torch.stack(outs) if outs
+           else torch.zeros((0, C, NOUT_B), dtype=torch.float32, device=dev))
+    return out, st, pos.to(torch.int32), ph
+
+
+def _boc_lib():
+    from gnsstpu_torch.ops import cuda_build
+
+    built = cuda_build.load(BOC_SOURCE)
+    fn = built.lib.track_chunk_boc_fused_cuda
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 5
+                       + [p, i, p])
+        fn.restype = ctypes.c_int
+        err = built.lib.track_boc_fused_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return built
+
+
+def build_all() -> dict:
+    """Build (or load) every kernel library of the port, one nvcc per
+    source, all started together. Returns {kernel name:
+    cuda_build.BuiltLibrary}."""
+    from gnsstpu_torch.ops import cuda_build
+
+    cuda_build.load_many([SOURCE, BOC_SOURCE])
+    return {"track_chunk_fused": _lib(),
+            "track_chunk_boc_fused": _boc_lib()}
+
+
+def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
+                          *, n_blocks: int, blkp: int, code_length: int,
+                          sub_length: int, ph_code: int, ph_sub: int,
+                          span_code: float, span_sub: float,
+                          base_code_step: float, base_sub_step: float,
+                          fs: float, coefs):
+    """Run K2. coefs = (k1, k2, k3, c_dll_p, c_dll_i, c_sll_p, c_sll_i).
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (on
+    torch.cuda.current_stream()) or raise.
+    """
+    kw = dict(n_blocks=n_blocks, blkp=blkp, code_length=code_length,
+              sub_length=sub_length, ph_code=ph_code, ph_sub=ph_sub,
+              span_code=span_code, span_sub=span_sub,
+              base_code_step=base_code_step, base_sub_step=base_sub_step,
+              fs=fs, coefs=coefs)
+    dev = chunk.device
+    if dev.type == "cpu":
+        return track_chunk_boc_fused_ref(chunk, ctab, stab, pos0, finit,
+                                         cinit, carrbase, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"track_chunk_boc_fused: unsupported device {dev}")
+    C, Rc, Rs = ctab.shape[0], ctab.shape[1], stab.shape[0]
+    _check("chunk", chunk, torch.float32, (chunk.shape[0], 2), dev)
+    _check("ctab", ctab, torch.float32, (C, Rc, 3, blkp), dev)
+    _check("stab", stab, torch.float32, (Rs, 3, blkp), dev)
+    _check("pos0", pos0, torch.int32, (C,), dev)
+    _check("finit", finit, torch.float32, (C, NF), dev)
+    _check("cinit", cinit, torch.int64, (C,), dev)
+    _check("carrbase", carrbase, torch.int64, (C,), dev)
+    if n_blocks < 0:
+        raise ValueError("n_blocks must be >= 0")
+    out = torch.empty((n_blocks, C, NOUT_B), dtype=torch.float32,
+                      device=dev)
+    ffin = torch.empty((C, NF), dtype=torch.float32, device=dev)
+    pos = torch.empty((C,), dtype=torch.int32, device=dev)
+    cph = torch.empty((C,), dtype=torch.int64, device=dev)
+    k = _boc_consts(code_length=code_length, sub_length=sub_length,
+                    ph_code=ph_code, ph_sub=ph_sub, span_code=span_code,
+                    span_sub=span_sub, base_code_step=base_code_step,
+                    base_sub_step=base_sub_step, fs=fs, coefs=coefs)
+    consts = (ctypes.c_float * len(BOC_CONSTS))(
+        *(k[name] for name in BOC_CONSTS))
+    built = _boc_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = built.lib.track_chunk_boc_fused_cuda(
+        chunk.data_ptr(), chunk.shape[0], ctab.data_ptr(), stab.data_ptr(),
+        pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
+        carrbase.data_ptr(), out.data_ptr(), ffin.data_ptr(),
+        pos.data_ptr(), cph.data_ptr(), C, n_blocks, Rc, Rs, blkp,
+        ctypes.cast(consts, ctypes.c_void_p), len(BOC_CONSTS), stream)
+    if rc != 0:
+        msg = built.lib.track_boc_fused_error_string(rc).decode()
+        raise RuntimeError(
+            f"track_chunk_boc_fused launch failed: {msg} ({rc})")
+    LAUNCHES["track_chunk_boc_fused"] += 1
     return out, ffin, pos, cph

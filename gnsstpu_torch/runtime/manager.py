@@ -1,16 +1,18 @@
 """Channel manager: acquisition scheduling, lock supervision, reacquisition
-(port of gnsstpu/runtime/manager.py for the 1 ms-code scan family on one
-device).
+(port of gnsstpu/runtime/manager.py for the 1 ms-code scan family and
+Galileo E1B, on one device).
 
 The device tracks a fixed [C]-slot channel bank; the host supervises at
 epoch boundaries: it reads back prompt statistics, assesses lock, swaps
 PRNs in and out of slots, and emits telemetry. The host supervision (slot
 life cycle with CONFIRM probation, _supervise_epoch/_supervise_block,
 history trimming, runtime commands, watchdog and stall recovery,
-prompt_stream) is the reference's, copied. The device parts are torch:
-slot rows are written in place, a superepoch is a Python loop of k K1
-launches each followed by its device lock summary, and the readback is
-one host copy per superepoch.
+prompt_stream) is the reference's, copied, and family-agnostic: the
+tracking engine (tracking.engines: K1 for the 1 ms codes, K2 for E1B's
+4 ms blocks) hands it the same per-block observables. The device parts
+are torch: slot rows are written in place, a superepoch is a Python loop
+of k kernel launches each followed by its device lock summary, and the
+readback is one host copy per superepoch.
 
 Pipelined superepochs (sync_every > 1) batch k supervision epochs into
 one upload + k dispatches + one readback. prefetch=True lets the device
@@ -36,9 +38,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from gnsstpu.config import ReceiverConfig
-from gnsstpu.runtime.telemetry import Telemetry
-from gnsstpu.signals.registry import get_signal
+from gnsstpu_torch.config import ReceiverConfig
+from gnsstpu_torch.runtime.telemetry import Telemetry
+from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.acquisition.search import (
     AcqResults, _windows_of, acq_samples_needed, acquire, code_fd_tensor,
     refine_doppler)
@@ -152,14 +154,16 @@ class ChannelManager:
     """Supervises a fixed bank of tracking slots over a sample source.
 
     device: where the slot bank, tracking state and sample chunks live
-      ('cuda' for the card; 'cpu' runs the plain twins).
+      ('cuda', the default, for the card, which raises on a host
+      without one; 'cpu' runs the kernels' plain twins).
     sync_every: supervision epochs per device round trip (superepoch).
     wire: host->device sample wire format — 'auto' uses
       source.wire_format when the source provides read_packed().
-    engine: 'auto' (= 'fused', the K1 kernel), 'fused', 'gather', 'table'.
+    engine: 'auto' (= 'fused': kernel K1, or K2 for Galileo E1B), 'fused',
+      'gather', 'table' (the exact scan engines).
     """
 
-    def __init__(self, source, cfg: ReceiverConfig, *, device,
+    def __init__(self, source, cfg: ReceiverConfig, *, device="cuda",
                  telemetry: Optional[Telemetry] = None,
                  epoch_ms: int = 100, drop_after_epochs: int = 3,
                  reacq_period_ms: int = 500,

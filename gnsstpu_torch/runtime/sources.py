@@ -3,18 +3,145 @@ packed sources of gnsstpu/runtime/sources.py).
 
 Random-access read(start, count) sources; packed wire-format sources also
 serve read_packed() bytes, which the ChannelManager ships to the device
-and unpacks there. ArraySource and FileSource have no JAX in them and are
-re-exported from the reference module.
+and unpacks there. ArraySource, FileSource and decode_samples are copied
+from the reference module, with its native codecs replaced by their
+NumPy fallbacks (gnsstpu_torch.ops.wire).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from gnsstpu.runtime.sources import ArraySource, FileSource  # noqa: F401
 from gnsstpu_torch.device import resolve_device
 from gnsstpu_torch.ops import unpack as up
+
+
+class ArraySource:
+    """In-memory source over an iq32 [N, 2] (or complex, converted) array."""
+
+    def __init__(self, samples: np.ndarray):
+        samples = np.asarray(samples)
+        if np.iscomplexobj(samples):
+            from gnsstpu_torch.ops.iq import complex_to_iq
+            samples = complex_to_iq(samples)
+        self.samples = np.asarray(samples, np.float32).reshape(-1, 2)
+
+    def read(self, start: int, count: int) -> np.ndarray:
+        out = np.zeros((count, 2), np.float32)
+        lo = max(start, 0)
+        hi = min(start + count, len(self.samples))
+        if hi > lo:
+            out[lo - start: hi - start] = self.samples[lo:hi]
+        return out
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+
+class FileSource:
+    """Raw IF sample file source.
+
+    Formats (reference initSettings.sci fileType / defines.h; packed
+    front-end formats decoded by gnsstpu_torch.ops.wire):
+      'i8_iq'       — interleaved signed 8-bit I,Q pairs (fileType 2)
+      'i8'          — signed 8-bit real samples (fileType 1)
+      'i16_iq'      — interleaved signed 16-bit I,Q
+      'c64'         — raw complex64
+      'gn3s_2bit'   — 1 byte/sample: I bits 1:0, Q bits 3:2, LUT
+                      {-3,-1,+1,+3} (gps_source.cpp:692)
+      'packed_4bit' — CPLD-packed real: LE u16 words of 4 x 4-bit
+                      sign/mag samples (data_packer.vhd)
+    """
+
+    _ITEM = {"i8_iq": (np.int8, 2), "i8": (np.int8, 1),
+             "i16_iq": (np.int16, 2), "c64": (np.complex64, 1),
+             "gn3s_2bit": (np.uint8, 1), "packed_4bit": (np.uint16, 1)}
+
+    def __init__(self, path: str, fmt: str = "i8_iq", skip_samples: int = 0):
+        if fmt not in self._ITEM:
+            raise ValueError(f"unknown format {fmt!r}")
+        self.path = path
+        self.fmt = fmt
+        self.skip = skip_samples
+        dtype, per = self._ITEM[fmt]
+        self._dtype, self._per = dtype, per
+        if fmt == "packed_4bit":
+            size = os.path.getsize(path)
+            self._n = size // 2 * 4 - skip_samples
+        else:
+            self._bytes_per_sample = np.dtype(dtype).itemsize * per
+            self._n = (os.path.getsize(path) // self._bytes_per_sample
+                       - skip_samples)
+
+    def read(self, start: int, count: int) -> np.ndarray:
+        from gnsstpu_torch.ops import wire
+
+        start += self.skip
+        out = np.zeros((count, 2), np.float32)
+        if self.fmt == "packed_4bit":
+            w0, w1 = start // 4, -(-(start + count) // 4)
+            raw = np.fromfile(self.path, dtype=np.uint16,
+                              count=w1 - w0, offset=2 * w0)
+            dec = wire.decode_packed_4bit(raw)
+            got = dec[start - 4 * w0: start - 4 * w0 + count]
+            out[: len(got)] = got
+            return out
+        raw = np.fromfile(
+            self.path, dtype=self._dtype,
+            count=count * self._per,
+            offset=start * self._bytes_per_sample)
+        n = len(raw) // self._per
+        if self.fmt == "c64":
+            out[:n, 0] = raw[:n].real
+            out[:n, 1] = raw[:n].imag
+        elif self.fmt == "gn3s_2bit":
+            out[:n] = wire.decode_gn3s_2bit(raw[:n])
+        elif self.fmt == "i8_iq":
+            out[:n] = wire.decode_i8_iq(raw[: 2 * n])
+        elif self.fmt == "i16_iq":
+            out[:n] = wire.decode_i16_iq(raw[: 2 * n])
+        else:
+            out[:n, 0] = raw[:n]
+        return out
+
+    def __len__(self) -> int:
+        return self._n
+
+
+def decode_samples(raw: bytes, fmt: str) -> np.ndarray:
+    """Decode a raw byte buffer in a FileSource wire format to f32
+    [n, 2] (whole samples only; callers keep their own byte residue)."""
+    from gnsstpu_torch.ops import wire
+
+    if fmt == "i8_iq":
+        n = len(raw) // 2
+        return wire.decode_i8_iq(np.frombuffer(raw, np.int8,
+                                                 count=2 * n))
+    if fmt == "i16_iq":
+        n = len(raw) // 4
+        return wire.decode_i16_iq(np.frombuffer(raw, np.int16,
+                                                  count=2 * n))
+    if fmt == "gn3s_2bit":
+        return wire.decode_gn3s_2bit(np.frombuffer(raw, np.uint8))
+    if fmt == "c64":
+        n = len(raw) // 8
+        c = np.frombuffer(raw, np.complex64, count=n)
+        out = np.empty((n, 2), np.float32)
+        out[:, 0], out[:, 1] = c.real, c.imag
+        return out
+    if fmt == "i8":
+        v = np.frombuffer(raw, np.int8).astype(np.float32)
+        out = np.zeros((len(v), 2), np.float32)
+        out[:, 0] = v
+        return out
+    if fmt == "packed_4bit":
+        nw = len(raw) // 2
+        return wire.decode_packed_4bit(
+            np.frombuffer(raw, np.uint16, count=nw))
+    raise ValueError(f"unknown format {fmt!r}")
 
 
 class _PackedReadMixin:

@@ -21,8 +21,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from gnsstpu.config import SignalConfig
-from gnsstpu.signals.registry import get_signal
+from gnsstpu_torch.config import SignalConfig
+from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.device import f32, resolve_device
 
 
@@ -43,11 +43,12 @@ class SatParams:
 
 
 class IFSimulator:
-    """Block-based IF sample generator on `device`."""
+    """Block-based IF sample generator on `device` (the card by default;
+    a CUDA request on a host without one raises)."""
 
     def __init__(self, cfg: SignalConfig, sats: Sequence[SatParams],
                  noise_sigma: float = 1.0, seed: int = 0, *,
-                 device="cpu"):
+                 device="cuda"):
         self.cfg = cfg
         self.sats = list(sats)
         self.noise_sigma = float(noise_sigma)

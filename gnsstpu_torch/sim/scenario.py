@@ -1,26 +1,29 @@
-"""Geometry-consistent GPS simulation scenarios (port of the GPS part of
-gnsstpu/sim/scenario.py, numpy, copied because that module imports the
-JAX simulator for SatParams).
+"""Geometry-consistent GPS and Galileo simulation scenarios (port of the
+GPS and Galileo parts of gnsstpu/sim/scenario.py, numpy, copied because
+that module imports the JAX simulator for SatParams).
 
-build_scenario() turns broadcast ephemerides and a receiver position into
-IFSimulator SatParams (delay, Doppler, Doppler rate, LNAV bits), so the
-stream is consistent end to end: acquisition -> tracking -> LNAV decode ->
-pseudoranges -> least squares must recover the configured position.
-bench_constellation() is the geometry-true GPS sky the live-receiver
-benchmark uses (bench.py::_bench_constellation).
+build_scenario() / build_scenario_galileo() turn broadcast ephemerides and
+a receiver position into IFSimulator SatParams (delay, Doppler, Doppler
+rate, LNAV bits / I/NAV symbols), so the stream is consistent end to end:
+acquisition -> tracking -> nav decode -> pseudoranges -> least squares
+must recover the configured position. bench_constellation() is the
+geometry-true GPS sky the live-receiver benchmark uses
+(bench.py::_bench_constellation); galileo_constellation() is the Galileo
+sky of the reference's tests (tests/test_galileo.py::
+make_gal_constellation).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
-from gnsstpu.config import SPEED_OF_LIGHT, SignalConfig
-from gnsstpu.nav import geodesy, lnav
-from gnsstpu.nav.orbits import satpos
-from gnsstpu.nav.types import Ephemeris
-from gnsstpu.signals.registry import get_signal
+from gnsstpu_torch.config import SPEED_OF_LIGHT, SignalConfig
+from gnsstpu_torch.nav import geodesy, lnav
+from gnsstpu_torch.nav.orbits import satpos
+from gnsstpu_torch.nav.types import Ephemeris
+from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.sim.generator import SatParams
 
 
@@ -34,6 +37,16 @@ def signal_delay(eph: Ephemeris, recv_ecef: np.ndarray, t_receive: float,
         rot = geodesy.e_r_corr(np.array([tau]), pos)[0]
         tau = float(np.linalg.norm(rot - recv_ecef) / SPEED_OF_LIGHT)
     return tau
+
+
+def _fit_delay(eph, recv_ecef, t_r0, T, satpos_fn):
+    """(tau0, taud, taudd): quadratic delay fit over the run."""
+    tau0 = signal_delay(eph, recv_ecef, t_r0, satpos_fn)
+    tau1 = signal_delay(eph, recv_ecef, t_r0 + T / 2, satpos_fn)
+    tau2 = signal_delay(eph, recv_ecef, t_r0 + T, satpos_fn)
+    taud = (4 * tau1 - 3 * tau0 - tau2) / T
+    taudd = 2 * (tau2 - 2 * tau1 + tau0) / (T * T)
+    return tau0, taud, taudd
 
 
 def build_scenario(sig: SignalConfig, ephs: Dict[int, Ephemeris],
@@ -59,12 +72,8 @@ def build_scenario(sig: SignalConfig, ephs: Dict[int, Ephemeris],
     for prn, eph in sorted(ephs.items()):
         _, clk = satpos(tow0, [eph])
         clk = float(clk[0])
-        t_r0 = tow0 - lead_s
-        tau0 = signal_delay(eph, recv_ecef, t_r0)
-        tau1 = signal_delay(eph, recv_ecef, t_r0 + T / 2)
-        tau2 = signal_delay(eph, recv_ecef, t_r0 + T)
-        taud = (4 * tau1 - 3 * tau0 - tau2) / T
-        taudd = 2 * (tau2 - 2 * tau1 + tau0) / (T * T)
+        tau0, taud, taudd = _fit_delay(eph, recv_ecef, tow0 - lead_s, T,
+                                       satpos)
         f_carr = sd.carrier_freq(prn)
         filler = rng.choice([-1.0, 1.0], size=n_lead)
         filler[-2:] = 1.0
@@ -128,3 +137,93 @@ def position_error_m(lat_deg: float, lon_deg: float, h_m: float,
     de = np.deg2rad(lon_deg - tlon) * r_e * np.cos(np.deg2rad(lat_deg))
     du = h_m - th
     return float(np.sqrt(dn * dn + de * de + du * du))
+
+
+def build_scenario_galileo(sig: SignalConfig, ephs: Dict[int, "object"],
+                           recv_ecef: np.ndarray, tow0: int,
+                           duration_s: float, lead_s: float = 2.0,
+                           cn0_dbhz: float = 47.0, n_pages: int = 5,
+                           seed: int = 59
+                           ) -> Tuple[List[SatParams], Dict[int, "object"]]:
+    """Geometry-consistent Galileo E1B I/NAV SatParams + quantized ephs
+    (copied from the reference).
+
+    tow0: GST TOW of the first nominal page start. Symbols are 250 sps
+    (one per 4 ms code period); lead_s of random symbols precede the
+    pages (must be a multiple of the code period).
+    """
+    from gnsstpu_torch.nav import galileo as gal
+
+    sd = get_signal(sig.signal)
+    rng = np.random.default_rng(seed)
+    n_lead = int(round(lead_s / sig.code_period_s))
+    if abs(n_lead * sig.code_period_s - lead_s) > 1e-9:
+        raise ValueError("lead_s must be a whole number of code periods")
+    qephs = {}
+    sats: List[SatParams] = []
+    t_r0 = tow0 - lead_s
+    for prn, eph0 in sorted(ephs.items()):
+        q, _ = gal.decode_frames(
+            gal.encode_frames(eph0, tow0=0, n_pages=5) * 800.0, 0)
+        q.SVID = prn
+        qephs[prn] = q
+        _, clk = gal.satpos_gal(float(tow0), [q])
+        clk = float(clk[0])
+        tau0, taud, taudd = _fit_delay(q, recv_ecef, t_r0, duration_s,
+                                       gal.satpos_gal)
+        f_carr = sd.carrier_freq(prn)
+        sym = np.concatenate([
+            rng.choice([-1.0, 1.0], size=n_lead),
+            gal.encode_frames(q, tow0=tow0, n_pages=n_pages)])
+        sats.append(SatParams(
+            prn=prn,
+            doppler_hz=-f_carr * taud,
+            doppler_rate=-f_carr * taudd,
+            code_phase_chips=(tau0 - clk) * sig.code_freq,
+            carrier_phase=float(rng.uniform(0, 2 * np.pi)),
+            cn0_dbhz=cn0_dbhz,
+            nav_bits=sym,
+        ))
+    return sats, qephs
+
+
+#: True receiver position and first page TOW of galileo_constellation.
+GALILEO_RECV_ECEF = np.array([3427947.0, 603774.0, 5326967.0])
+GALILEO_TOW0 = 351000                  # = t_oe
+
+
+def galileo_constellation(sig: SignalConfig, n_sats: int,
+                          duration_s: float, cn0_dbhz: float = 48.0):
+    """Geometry-true Galileo E1B sky with I/NAV symbol streams: the
+    reference tests' 30 synthetic Keplerian orbits
+    (tests/test_galileo.py::make_gal_constellation), the n_sats highest
+    in elevation, with pages covering duration_s. Returns (sats, prns,
+    recv_ecef, quantized ephemerides)."""
+    from gnsstpu_torch.nav import galileo as gal
+
+    base = gal.GalileoEphemeris(
+        IODnav=61, t_oe=351000.0, M_0=0.654321, e=2.5e-4, sqrtA=5440.588,
+        omega_0=-1.0471975, i_0=0.9773844, omega=0.5235988,
+        iDot=-1.8e-10, omegaDot=-5.6e-9, deltan=3.2e-9,
+        C_uc=-8.5e-7, C_us=9.9e-6, C_rc=112.25, C_rs=-27.125,
+        SVID=11, C_ic=3.7e-8, C_is=-5.6e-8, t_oc=351000.0,
+        a_f0=-1.2e-4, a_f1=-7.9e-12, a_f2=0.0,
+        ai0=40.0, ai1=0.15, ai2=0.002, BGD_E1E5a=2.3e-9,
+        BGD_E1E5b=2.8e-9, WN=1042, TOW=351000)
+    ephs = []
+    for k in range(30):
+        e = gal.GalileoEphemeris(**{**base.__dict__})
+        e.M_0 = (base.M_0 + 2.7 * k) % (2 * np.pi) - np.pi
+        e.omega_0 = (base.omega_0 + 1.7 * k) % (2 * np.pi) - np.pi
+        e.i_0 = 0.95 + 0.03 * (k % 3)
+        ephs.append(e)
+    recv = GALILEO_RECV_ECEF.copy()
+    pos, _ = gal.satpos_gal(float(GALILEO_TOW0), ephs)
+    _, el, _ = geodesy.topocent(recv, pos - recv)
+    order = np.argsort(-el)[:n_sats]
+    chosen = {int(k) + 1: ephs[k] for k in order}
+    n_pages = int(np.ceil((duration_s + 2.0) / 2.0)) + 1
+    sats, qephs = build_scenario_galileo(
+        sig, chosen, recv, GALILEO_TOW0, duration_s=duration_s,
+        cn0_dbhz=cn0_dbhz, n_pages=n_pages)
+    return sats, sorted(chosen), recv, qephs

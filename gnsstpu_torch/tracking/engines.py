@@ -1,11 +1,15 @@
 """Per-family tracking-engine adapters for the live ChannelManager (port of
-gnsstpu/tracking/engines.py, the 1 ms-code scan family).
+gnsstpu/tracking/engines.py).
 
-ScanFamilyEngine drives GPS L1 C/A, GLONASS L1/L2 FDMA and BeiDou B1 over
-the exact scan tracker ('gather' / 'table') or the fused K1 tracker
-('fused'), and returns per-block observables in the EpochObs layout the
-manager's supervision reads. The slot bank lives in host numpy arrays;
-the manager mirrors it on the device and swaps rows in place.
+  * ScanFamilyEngine drives GPS L1 C/A, GLONASS L1/L2 FDMA and BeiDou B1
+    over the exact scan tracker ('gather' / 'table') or the fused K1
+    tracker ('fused');
+  * BocEngine drives Galileo E1B (4 ms code periods) over the exact
+    double-estimator scan ('boc') or kernel K2 ('boc_fused').
+Each returns per-block observables in the EpochObs layout the manager's
+supervision reads, so the manager is family-agnostic; one block is one
+code period (period_ms). The slot bank lives in host numpy arrays; the
+manager mirrors it on the device and swaps rows in place.
 """
 
 from __future__ import annotations
@@ -15,8 +19,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gnsstpu.config import ReceiverConfig
-from gnsstpu.signals.registry import get_signal
+from gnsstpu_torch.config import ReceiverConfig
+from gnsstpu_torch.signals.registry import get_signal
 
 
 class EpochObs(NamedTuple):
@@ -36,8 +40,9 @@ class EpochObs(NamedTuple):
 
 
 def resolve_engine(mode: str = "auto") -> str:
-    """'auto' is the fused K1 tracker on every device: on a CUDA tensor
-    it launches the kernel, on a CPU tensor it runs K1's plain twin."""
+    """'auto' is the fused kernel on every device: on a CUDA tensor it
+    launches the kernel, on a CPU tensor it runs the kernel's plain
+    twin."""
     if mode == "auto":
         return "fused"
     if mode not in ("fused", "gather", "table"):
@@ -49,9 +54,7 @@ def make_engine(cfg: ReceiverConfig, mode: str = "auto"):
     """(signal family, engine mode) -> adapter instance."""
     name = cfg.signal.signal
     if name == "galileo_e1b":
-        raise NotImplementedError(
-            "Galileo E1B (BocEngine, kernel K2) is not ported yet: "
-            "ROADMAP queue 1, 'the BOC family with K2'")
+        return BocEngine(cfg, fused=resolve_engine(mode) == "fused")
     if name == "glonass_l3oc":
         raise NotImplementedError(
             "GLONASS L3OC (DualEngine, kernel K3) is not ported yet: "
@@ -59,22 +62,30 @@ def make_engine(cfg: ReceiverConfig, mode: str = "auto"):
     return ScanFamilyEngine(cfg, mode)
 
 
-class ScanFamilyEngine:
-    """1 ms-code families over tracking.scan or the fused K1 tracker."""
-
+class _Base:
     has_data_component = False
-    slot_keys = ("codes", "carr_base", "inv_aid")
 
-    def __init__(self, cfg: ReceiverConfig, mode: str = "auto"):
+    def __init__(self, cfg: ReceiverConfig):
         self.cfg = cfg
         self.sig = cfg.signal
         self.sd = get_signal(self.sig.signal)
         self.period_ms = int(round(self.sig.code_period_s * 1e3))
         self.spc = self.sig.samples_per_code
-        #: rem (chips) times this = samples (abs_sample bookkeeping).
+        #: rem (chips of the pseudorange code) times this = samples
+        #: (abs_sample bookkeeping).
         self.rem_to_samples = self.sig.fs / self.sig.code_freq
+
+
+class ScanFamilyEngine(_Base):
+    """1 ms-code families over tracking.scan or the fused K1 tracker."""
+
+    slot_keys = ("codes", "carr_base", "inv_aid")
+
+    def __init__(self, cfg: ReceiverConfig, mode: str = "auto"):
+        super().__init__(cfg)
         self.name = resolve_engine(mode)
-        from gnsstpu.ops import code_tables
+        from gnsstpu_torch.ops import code_tables
+
         if self.name == "fused":
             from gnsstpu_torch.tracking.fused import fused_code_table
             self._tab = fused_code_table(self.sig, cfg.track)
@@ -138,6 +149,97 @@ class ScanFamilyEngine:
                 ip=out.ip, qp=out.qp, ie=out.ie, qe=out.qe,
                 il=out.il, ql=out.ql, rem=out.rem_code_phase,
                 blksize=out.blksize, dopp=out.carr_doppler)
+            return state, obs
+
+        return step
+
+
+class BocEngine(_Base):
+    """Galileo E1B double estimator (4 ms blocks) over the exact scan
+    ('boc') or kernel K2 ('boc_fused').
+
+    The pseudorange observable is the primary-code estimator, so rem is
+    in primary chips (rem_to_samples = fs / 1.023 MHz). The fused
+    engine's per-slot code tap rows are built when a PRN is written into
+    a slot (the same values as the reference's table of all 50 PRNs,
+    which is ~1.3 GB at 4.2 Msps); the meandr rows are shared.
+    """
+
+    slot_keys = ("codes",)
+
+    def __init__(self, cfg: ReceiverConfig, fused: bool):
+        from gnsstpu_torch.signals import galileo_e1
+        from gnsstpu_torch.tracking import boc
+
+        super().__init__(cfg)
+        # sig registry convention: code_freq/code_length at the meandr
+        # rate; the primary code is half that (tracking.boc).
+        self.rem_to_samples = self.sig.fs / (self.sig.code_freq / 2.0)
+        self.name = "boc_fused" if fused else "boc"
+        self.fused = fused
+        if fused:
+            self._sub = boc.sub_tap_rows(self.sig, cfg.track)
+            self._row_shape = boc.code_tap_rows(self.sig, cfg.track,
+                                                [1]).shape[1:]
+        else:
+            def pad(c):
+                return np.concatenate([c[-1:], c, c[:1]]).astype(
+                    np.float32)
+            self._tab = np.stack(
+                [pad(galileo_e1.primary_code(p))
+                 for p in range(1, self.sd.num_prn + 1)])
+            self._row_shape = self._tab.shape[1:]
+            self._sub = pad(galileo_e1.subcarrier())
+
+    def new_bank(self, C: int) -> dict:
+        from gnsstpu_torch.ops import nco
+
+        cb = np.full(C, nco.freq_to_step_u32(self.sig.if_freq,
+                                             self.sig.fs), np.uint32)
+        return {"codes": np.zeros((C,) + self._row_shape, np.float32),
+                "sub": np.asarray(self._sub, np.float32),
+                "carr_base": cb}
+
+    def write_slot(self, bank: dict, idx: int, prn: int) -> None:
+        if self.fused:
+            from gnsstpu_torch.tracking.boc import code_tap_rows
+
+            bank["codes"][idx] = code_tap_rows(self.sig, self.cfg.track,
+                                               [prn])[0]
+        else:
+            bank["codes"][idx] = self._tab[prn - 1]
+
+    def _state(self, code_phase, doppler_hz, device):
+        from gnsstpu_torch.tracking.boc import BocTrackState
+
+        return BocTrackState.init(code_phase, doppler_hz,
+                                  aid_code=self.cfg.track.aid_div,
+                                  aid_sub=self.cfg.track.aid_div / 2.0,
+                                  device=device)
+
+    def init_state(self, C: int, device):
+        return self._state(np.zeros(C, np.int64), np.zeros(C, np.float32),
+                           device)
+
+    def slot_state(self, doppler_hz: float, device):
+        return self._state(np.zeros(1, np.int64),
+                           np.array([doppler_hz], np.float32), device)
+
+    def make_step(self, n_blocks: int):
+        from gnsstpu_torch.tracking import boc
+
+        make = boc.make_fused_boc_tracker if self.fused \
+            else boc.make_boc_tracker
+        tracker = make(self.sig, self.cfg.track, n_blocks=n_blocks)
+
+        def step(win, bank, state):
+            state, out = tracker(win, bank["codes"], bank["sub"],
+                                 bank["carr_base"], state)
+            a = out.acc
+            obs = EpochObs(
+                ip=a.i_pp, qp=a.q_pp, ie=a.i_pe, qe=a.q_pe,
+                il=a.i_pl, ql=a.q_pl, rem=a.rem_code_phase,
+                blksize=a.blksize, dopp=out.carr_doppler)
             return state, obs
 
         return step

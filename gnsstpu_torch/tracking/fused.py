@@ -18,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gnsstpu.config import SignalConfig, TrackConfig
-from gnsstpu.ops import code_tables
+from gnsstpu_torch.config import SignalConfig, TrackConfig
+from gnsstpu_torch.ops import code_tables
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.tracking.scan import TrackOut, TrackState, loop_coefs
 

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gnsstpu.config import SignalConfig, TrackConfig
+from gnsstpu_torch.config import SignalConfig, TrackConfig
 from gnsstpu_torch.device import f32
 from gnsstpu_torch.ops import correlate, nco
 from gnsstpu_torch.ops.correlate import CorrState

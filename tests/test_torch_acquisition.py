@@ -15,6 +15,8 @@ from gnsstpu.ops import fft_acquire as jfft
 from gnsstpu.sim import IFSimulator, SatParams
 from gnsstpu_torch.acquisition import search as tsearch
 from gnsstpu_torch.ops import fft_acquire as tfft
+from torch_port import one_torch_thread_per_worker  # noqa: F401
+from torch_port import to_port
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 SATS = [SatParams(prn=3, doppler_hz=1250.0, code_phase_chips=100.3,
@@ -66,11 +68,11 @@ def test_acquire_same_detections():
                     fine_doppler_ms=5)
     x = _samples()
     ref = jsearch.acquire(x, SIG, acq)
-    got = tsearch.acquire(x, SIG, acq, device="cpu")
+    got = tsearch.acquire(x, to_port(SIG), to_port(acq), device="cpu")
     assert got.detected_prns() == ref.detected_prns() == [3, 17]
     for i in (2, 16):
         assert int(got.code_phase[i]) == int(ref.code_phase[i])
         assert abs(got.carr_freq[i] - ref.carr_freq[i]) < 1.0
     np.testing.assert_allclose(got.peak_metric, ref.peak_metric, rtol=1e-3)
-    assert tsearch.acq_samples_needed(SIG, acq) == \
+    assert tsearch.acq_samples_needed(to_port(SIG), to_port(acq)) == \
         jsearch.acq_samples_needed(SIG, acq)

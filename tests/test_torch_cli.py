@@ -10,6 +10,7 @@ import pytest
 from gnsstpu.config import SignalConfig
 from gnsstpu.sim import IFSimulator, SatParams
 from gnsstpu_torch.__main__ import main
+from torch_port import one_torch_thread_per_worker  # noqa: F401
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 ARGS = ["--device", "cpu", "--fs", "2.048e6", "--if-freq", "0",

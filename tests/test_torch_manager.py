@@ -26,6 +26,9 @@ from gnsstpu.runtime.telemetry import Telemetry
 from gnsstpu.sim import IFSimulator, SatParams
 from gnsstpu_torch.runtime.manager import ChannelManager as TManager
 from gnsstpu_torch.runtime.sources import PackedArraySource as TPacked
+from gnsstpu_torch.runtime.telemetry import Telemetry as TTelemetry
+from torch_port import one_torch_thread_per_worker  # noqa: F401
+from torch_port import to_port
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 SATS = [
@@ -51,11 +54,14 @@ def _cfg():
 
 
 def _run(cls, src, engine, n_ms=800, **kw):
-    extra = {"device": "cpu"} if cls is TManager else {}
-    mgr = cls(src, _cfg(), telemetry=Telemetry(sink=io.StringIO()),
-              epoch_ms=100, reacq_period_ms=400, cn0_drop_dbhz=35.0,
-              prn_pool=[5, 12], sync_every=4, engine=engine, **extra,
-              **kw)
+    if cls is TManager:
+        cfg, tlm = to_port(_cfg()), TTelemetry(sink=io.StringIO())
+        kw["device"] = "cpu"
+    else:
+        cfg, tlm = _cfg(), Telemetry(sink=io.StringIO())
+    mgr = cls(src, cfg, telemetry=tlm, epoch_ms=100, reacq_period_ms=400,
+              cn0_drop_dbhz=35.0, prn_pool=[5, 12], sync_every=4,
+              engine=engine, **kw)
     recs = mgr.run(n_ms)
     return mgr, recs
 
@@ -109,11 +115,11 @@ def test_fused_manager_matches_reference(samples):
 def test_unported_options_raise(samples):
     src = TPacked(samples, fmt="sm2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TManager(src, _cfg(), device="cpu", mesh=object())
-    mgr = TManager(src, _cfg(), device="cpu")
+        TManager(src, to_port(_cfg()), device="cpu", mesh=object())
+    mgr = TManager(src, to_port(_cfg()), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mgr.save_checkpoint("unused.npz")
     weak = ReceiverConfig(signal=SIG, acq=AcqConfig().weak(),
                           track=TrackConfig(), n_channels=3)
     with pytest.raises(NotImplementedError, match="weak-tier"):
-        TManager(src, weak, device="cpu")._wk_step()
+        TManager(src, to_port(weak), device="cpu")._wk_step()

@@ -11,6 +11,7 @@ import torch
 from gnsstpu.ops import nco as jnco
 from gnsstpu_torch.device import u32_numpy, u32_tensor
 from gnsstpu_torch.ops import nco as tnco
+from torch_port import one_torch_thread_per_worker  # noqa: F401
 
 CPU = torch.device("cpu")
 

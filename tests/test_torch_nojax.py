@@ -1,28 +1,43 @@
-"""The port never reaches JAX: a fresh interpreter whose import system
-refuses `jax` imports every gnsstpu_torch module and runs a small slice of
-the live receiver (port simulator -> packed sm2 source -> ChannelManager
-with the fused engine -> records), then checks that jax was never loaded.
-A GPU host need not have JAX installed, so any such import would break
-chip_smoke.py there."""
+"""The port never reaches JAX or the JAX package: a fresh interpreter whose
+import system refuses `jax`, `jaxlib` and every `gnsstpu` module imports
+every gnsstpu_torch module and runs two small slices of the live receiver
+on the CPU (port simulator -> packed sm2 source -> ChannelManager ->
+records): GPS L1 C/A with the fused engine (K1's twin) and Galileo E1B
+with the exact scan engine ('gather'). A GPU host need not have JAX
+installed, and the port carries its own copies of the reference's host
+modules, so any such import would be a fault.
+
+The entry points run on the card unless the caller asks for the CPU:
+without a card, acquire(), IFSimulator and ChannelManager called without a
+device raise instead of running on the CPU.
+"""
 
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
+import pytest
+import torch
+
+from torch_port import one_torch_thread_per_worker  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, io, pkgutil, sys
 
-    class RefuseJax(importlib.abc.MetaPathFinder):
+    REFUSED = ("jax", "jaxlib", "gnsstpu")
+
+    class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in REFUSED:
                 raise ImportError(f"refused import of {name}")
             return None
 
-    assert "jax" not in sys.modules
-    sys.meta_path.insert(0, RefuseJax())
+    assert not [m for m in sys.modules if m.split(".")[0] in REFUSED]
+    sys.meta_path.insert(0, Refuse())
 
     import gnsstpu_torch
     for mod in pkgutil.walk_packages(gnsstpu_torch.__path__,
@@ -35,12 +50,14 @@ SCRIPT = textwrap.dedent("""
     from gnsstpu_torch.runtime import Telemetry
     from gnsstpu_torch.runtime.manager import ChannelManager, SlotState
     from gnsstpu_torch.runtime.sources import PackedArraySource
+    from gnsstpu_torch.signals import galileo_e1
     from gnsstpu_torch.sim import IFSimulator, SatParams
 
     sig = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
     sats = [SatParams(prn=5, doppler_hz=900.0, code_phase_chips=200.5,
                       cn0_dbhz=47.0)]
-    x = IFSimulator(sig, sats, noise_sigma=1.0, seed=3).generate(850)
+    x = IFSimulator(sig, sats, noise_sigma=1.0, seed=3,
+                    device="cpu").generate(850)
     cfg = ReceiverConfig(
         signal=sig, acq=AcqConfig(doppler_band=6e3, coherent_ms=2,
                                   threshold=2.4, prn_list=(5, 12),
@@ -57,14 +74,77 @@ SCRIPT = textwrap.dedent("""
     states = [(s.prn, s.state) for s in mgr.slots]
     assert states[0] == (5, SlotState.TRACKING), states
     assert abs(recs[-1].doppler_hz[0] - 900.0) < 5.0
-    assert "jax" not in sys.modules and "jaxlib" not in sys.modules
-    print("NOJAX-OK", len(recs))
+    n_gps = len(recs)
+
+    gsig = SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
+                        code_freq=galileo_e1.SUB_FREQ,
+                        code_length=galileo_e1.SUB_LENGTH)
+    gsat = [SatParams(prn=11, doppler_hz=510.0, code_phase_chips=3210.5,
+                      cn0_dbhz=48.0)]
+    gx = IFSimulator(gsig, gsat, noise_sigma=1.0, seed=4,
+                     device="cpu").generate(1300)
+    gcfg = ReceiverConfig(
+        signal=gsig,
+        acq=AcqConfig(doppler_band=1000.0, coherent_ms=1, threshold=2.2,
+                      doppler_step=125.0, prn_list=(11,)),
+        track=TrackConfig(dll_bw=1.0, el_spacing=0.25, pll_bw=15.0,
+                          fll_bw=50.0, sll_bw=0.5, sll_spacing=0.25),
+        n_channels=2)
+    gmgr = ChannelManager(PackedArraySource(gx, fmt="sm2"), gcfg,
+                          device="cpu",
+                          telemetry=Telemetry(sink=io.StringIO()),
+                          epoch_ms=400, reacq_period_ms=10 ** 9,
+                          prn_pool=[11, 20], sync_every=3,
+                          engine="gather")
+    grecs = gmgr.run(1200)
+    assert gmgr.engine == "boc"
+    assert grecs[-1].prn[0] == 11, grecs[-1].prn
+    assert abs(grecs[-1].doppler_hz[0] - 510.0) < 5.0
+    assert len(gmgr.prompt_stream(11)["i_p"]) == 300
+
+    loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
+    assert not loaded, loaded
+    print("NOJAX-OK", n_gps, len(grecs))
 """)
 
 
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # One torch thread: beside a parallel test run, a thread pool per
+    # process oversubscribes the host's cores.
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "NOJAX-OK 8" in proc.stdout
+    assert "NOJAX-OK 8 3" in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["acquire", "IFSimulator",
+                                   "ChannelManager"])
+def test_entry_points_default_to_the_card(entry):
+    """Called without `device`, an entry point asks for the card: on a
+    host without one it raises, never quietly running on the CPU."""
+    from gnsstpu_torch import AcqConfig, ReceiverConfig, SignalConfig
+    from gnsstpu_torch.acquisition.search import acquire
+    from gnsstpu_torch.runtime.manager import ChannelManager
+    from gnsstpu_torch.runtime.sources import ArraySource
+    from gnsstpu_torch.sim import IFSimulator, SatParams
+
+    sig = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
+    calls = {
+        "acquire": lambda: acquire(
+            np.zeros((8 * 2048, 2), np.float32), sig,
+            AcqConfig(coherent_ms=1, doppler_band=1e3)),
+        "IFSimulator": lambda: IFSimulator(
+            sig, [SatParams(prn=1)]).device,
+        "ChannelManager": lambda: ChannelManager(
+            ArraySource(np.zeros((2048, 2), np.float32)),
+            ReceiverConfig(signal=sig, n_channels=1)).device,
+    }
+    if torch.cuda.is_available():
+        got = calls[entry]()
+        if entry != "acquire":
+            assert got.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[entry]()

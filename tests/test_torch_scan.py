@@ -22,9 +22,12 @@ from gnsstpu.sim import IFSimulator, SatParams
 from gnsstpu.tracking import scan as jscan
 from gnsstpu_torch.device import u32_numpy, u32_tensor
 from gnsstpu_torch.tracking import scan as tscan
+from torch_port import one_torch_thread_per_worker  # noqa: F401
+from torch_port import to_port
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 TRK = TrackConfig(dll_bw=1.0, el_spacing=0.3)
+TSIG, TTRK = to_port(SIG), to_port(TRK)
 CPU = torch.device("cpu")
 ACCS = ("ie", "qe", "ip", "qp", "il", "ql")
 FIELDS = ("carr_doppler", "code_freq_delta", "rem_code_phase", "dll_disc",
@@ -61,7 +64,7 @@ def run_jax(mode, n_blocks, chunk, codes, cb, ia, cp, dp):
 
 def run_torch(mode, n_blocks, chunk, codes, cb, ia, cp, dp):
     st0 = tscan.TrackState.init(cp, dp, device=CPU)
-    tr = tscan.make_tracker(SIG, TRK, n_blocks=n_blocks, code_mode=mode)
+    tr = tscan.make_tracker(TSIG, TTRK, n_blocks=n_blocks, code_mode=mode)
     return tr(torch.tensor(chunk), torch.tensor(codes),
               (u32_tensor(cb, CPU), torch.from_numpy(ia)), st0)
 
@@ -69,7 +72,7 @@ def run_torch(mode, n_blocks, chunk, codes, cb, ia, cp, dp):
 def test_channel_consts_match():
     for offs in (None, [0.0, 562.5e3, -1125e3]):
         a = jscan.channel_consts(SIG, TRK, [1, 2, 3], if_offsets_hz=offs)
-        b = tscan.channel_consts(SIG, TRK, [1, 2, 3], if_offsets_hz=offs)
+        b = tscan.channel_consts(TSIG, TTRK, [1, 2, 3], if_offsets_hz=offs)
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
 

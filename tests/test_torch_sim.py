@@ -16,6 +16,8 @@ from gnsstpu.sim import SatParams as JSat
 from gnsstpu.sim.scenario import build_scenario as j_build
 from gnsstpu_torch.sim import IFSimulator, SatParams
 from gnsstpu_torch.sim import scenario as tscen
+from torch_port import one_torch_thread_per_worker  # noqa: F401
+from torch_port import to_port
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 
@@ -30,15 +32,15 @@ def _sats(cls):
 
 def test_noise_free_signal_matches_reference():
     ref = JSim(SIG, _sats(JSat), noise_sigma=0.0, seed=1).generate(45, 3)
-    got = IFSimulator(SIG, _sats(SatParams), noise_sigma=0.0, seed=1,
-                      device="cpu").generate(45, 3)
+    got = IFSimulator(to_port(SIG), _sats(SatParams), noise_sigma=0.0,
+                      seed=1, device="cpu").generate(45, 3)
     assert got.shape == ref.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=1e-4)
 
 
 def test_noise_statistics_and_seeding():
-    sim = IFSimulator(SIG, _sats(SatParams)[:1], noise_sigma=1.0, seed=9,
-                      device="cpu")
+    sim = IFSimulator(to_port(SIG), _sats(SatParams)[:1], noise_sigma=1.0,
+                      seed=9, device="cpu")
     a, b = sim.generate(20), sim.generate(20)
     np.testing.assert_array_equal(a, b)              # seeded by (seed, ms0)
     assert not np.array_equal(a, sim.generate(20, ms0=20))
@@ -57,8 +59,8 @@ def test_build_scenario_matches_reference():
         C_is=1.12e-7, valid=True)
     recv = tscen.BENCH_RECV_ECEF
     a = j_build(SIG, {7: eph}, recv, 44400, duration_s=8.0, n_subframes=2)
-    b = tscen.build_scenario(SIG, {7: eph}, recv, 44400, duration_s=8.0,
-                             n_subframes=2)
+    b = tscen.build_scenario(to_port(SIG), {7: to_port(eph)}, recv, 44400,
+                             duration_s=8.0, n_subframes=2)
     for sa, sb in zip(a, b):
         for f in ("prn", "doppler_hz", "doppler_rate", "code_phase_chips",
                   "carrier_phase", "cn0_dbhz"):

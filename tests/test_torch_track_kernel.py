@@ -26,9 +26,12 @@ from gnsstpu_torch.device import u32_numpy, u32_tensor
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.tracking import fused as tfused
 from gnsstpu_torch.tracking import scan as tscan
+from torch_port import one_torch_thread_per_worker  # noqa: F401
+from torch_port import to_port
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 TRK = TrackConfig(dll_bw=1.0, el_spacing=0.3)
+TSIG, TTRK = to_port(SIG), to_port(TRK)
 CPU = torch.device("cpu")
 ACCS = ("ie", "qe", "ip", "qp", "il", "ql")
 
@@ -77,9 +80,9 @@ def test_port_fused_matches_reference_fused(C, n_blocks):
     ref_state, ref_out = ref(jnp.asarray(chunk), jnp.asarray(tab),
                              (jnp.asarray(cb), jnp.asarray(ia)), st0)
 
-    np.testing.assert_array_equal(tfused.fused_code_table(SIG, TRK, prns),
+    np.testing.assert_array_equal(tfused.fused_code_table(TSIG, TTRK, prns),
                                   tab)
-    port = tfused.make_fused_tracker(SIG, TRK, n_blocks=n_blocks)
+    port = tfused.make_fused_tracker(TSIG, TTRK, n_blocks=n_blocks)
     before = tk.LAUNCHES["track_chunk_fused"]
     got_state, got_out = port(
         torch.tensor(chunk), torch.tensor(tab),
@@ -119,7 +122,7 @@ def cuda_device():
 def test_cuda_kernel_matches_plain_twin(cuda_device):
     C, n_blocks = 4, 12
     prns, chunk, tab, cb, ia, cp, dp = _setup(C, n_blocks)
-    port = tfused.make_fused_tracker(SIG, TRK, n_blocks=n_blocks)
+    port = tfused.make_fused_tracker(TSIG, TTRK, n_blocks=n_blocks)
     res = {}
     for dev in (CPU, cuda_device):
         before = tk.LAUNCHES["track_chunk_fused"]

@@ -9,6 +9,7 @@ import torch
 from gnsstpu.ops import unpack as jup
 from gnsstpu_torch.ops import unpack as tup
 from gnsstpu_torch.runtime.sources import PackedArraySource
+from torch_port import one_torch_thread_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("fmt", ["iq8", "iq4", "sm2", "iq1"])
