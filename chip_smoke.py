@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two live receiver paths once on the card, through the
+Drives the port's three live receiver paths once on the card, through the
 entry points a user calls, each with a sky and signal made by the port's
 simulator from a fixed seed:
   * GPS L1 C/A at the benchmark configuration (bench.py::bench_manager):
@@ -15,12 +15,20 @@ simulator from a fixed seed:
     geometry-true sky (tests/test_galileo.py's constellation) plus 2
     absent PRNs, C/N0 48 dB-Hz, 500 ms epochs, 4-epoch superepochs, sm2
     wire on the card, prefetch, compact readback, and the navigator
-    (I/NAV decode + LSQ PVT), over ~24 s of signal; it runs kernel K2.
+    (I/NAV decode + LSQ PVT), over ~24 s of signal; it runs kernel K2;
+  * GLONASS L3OC pilot + data (glonass_l3oc_live_12ch): the reference
+    front end (24 Msps complex, IF -2.025 MHz), 12 channels over 8
+    satellites, each a pilot and a data component carrying its own 24
+    rate-1/2 encoded bits, plus 2 absent satellites in the pool, C/N0
+    48 dB-Hz, sm2 wire on the card, 500 ms epochs, 2-epoch superepochs,
+    prefetch, compact readback, the navigator armed (L3OC has no live
+    navigation: it reports so once), over 9 s of signal; it runs kernel
+    K3, and the data bits come back from the data prompts.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: a CUDA card is required; its name and power limit;
-  2. build: the port's CUDA kernels from the sources in this checkout,
-     one nvcc per source, started together;
+  2. build: the port's three CUDA kernels from the sources in this
+     checkout, one nvcc per source, started together;
   3. K1 on the card against its plain PyTorch twin (C=12 x 500 blocks and
      C=9 x 6 blocks, tests/test_track_kernel.py's tolerances);
   4. K1 time against the twin (CUDA events, C=12 x 1000 and x 500
@@ -34,14 +42,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
   8. K2 time against the twin (CUDA events, C=12 x 125 and x 250 blocks);
   9. the Galileo main path with its end-to-end checks and K2's launch
      count;
+ 10. K3's build record (ptxas registers and spill) and its tap table's
+     size at C=12, int8 six planes against the TPU layout, from the shapes;
+ 11. K3 on the card against its plain twin (C=12 x 500 blocks at 24 Msps,
+     the main path's launch, and C=3 x 6 blocks) on an L3OC signal:
+     blksize and sample_pos exact, the other lanes within K3_TOL;
+ 12. K3 time against the twin (CUDA events, C=12 x 500 and x 1000);
+ 13. the GLONASS L3OC main path with its end-to-end checks (every sky
+     satellite tracked, Doppler and C/N0, overlay sync, the data bits
+     bit-exact, K3 launched and K1 / K2 not) and K3's share of the wall;
 then the kernel record, the nvidia-smi line and the result line.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s (the chunk,
 the tap rows this run's data selects, state and outputs, each once) and
 its f32 operations over 67 TFLOP/s (per sample and channel: 6 for the LO
-products, 6 for the wipeoff, 2 per accumulator, and K2's 5 tap products;
-the per-block sincos and loop filters are left out, under 1%), for the
-samples this run's blocks cover.
+products, 6 for the wipeoff, 2 per accumulator, and K2's 5 tap products:
+24 for K1, 37 for K2, 36 for K3's twelve accumulators; the per-block sincos
+and loop filters are left out, under 1%), for the samples this run's
+blocks cover. K3's tap rows are int8, one byte per tap.
 """
 
 from __future__ import annotations
@@ -58,17 +76,20 @@ from gnsstpu_torch import (AcqConfig, NavConfig, ReceiverConfig,
                            SignalConfig, TrackConfig)
 from gnsstpu_torch.acquisition import search
 from gnsstpu_torch.device import u32_numpy, u32_tensor
+from gnsstpu_torch.nav import glonass_l3 as l3nav
+from gnsstpu_torch.nav.viterbi import conv_encode, viterbi_decode
 from gnsstpu_torch.ops import fft_acquire, nco
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.runtime import OnlineNavigator, Telemetry
 from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.sources import DevicePackedArraySource
 from gnsstpu_torch.sim import IFSimulator, SatParams
-from gnsstpu_torch.signals import galileo_e1
+from gnsstpu_torch.signals import galileo_e1, glonass_l3
 from gnsstpu_torch.sim.scenario import (bench_constellation,
                                         galileo_constellation,
                                         position_error_m)
 from gnsstpu_torch.tracking import boc as tboc
+from gnsstpu_torch.tracking import dual as tdual
 from gnsstpu_torch.tracking import fused as tfused
 from gnsstpu_torch.tracking import scan as tscan
 
@@ -88,6 +109,26 @@ K2_REPLACES = "gnsstpu/ops/track_kernel.py:938"
 #: and the code / meandr remainders [chips, half-chips] as K1's.
 K2_TOL = {"acc_rtol": 2e-3, "acc_atol": 16.0, "carr_doppler": 0.05,
           "rem_code_phase": 5e-4, "rem_sub_phase": 5e-4}
+# The reference L3 front end (GLONASS/L3/initSettings.sci:69-75).
+LSIG = SignalConfig(signal="glonass_l3oc", if_freq=-2.025e6, fs=24.0e6,
+                    code_freq=glonass_l3.CODE_FREQ,
+                    code_length=glonass_l3.CODE_LENGTH, complex_iq=True)
+LTRK = TrackConfig(dll_bw=1.0, el_spacing=0.3, pll_bw=25.0, fll_bw=250.0,
+                   aid_div=glonass_l3.CARRIER_HZ / glonass_l3.CODE_FREQ)
+K3_SOURCE = "gnsstpu_torch/csrc/track_dual_fused.cu"
+K3_REPLACES = "gnsstpu/ops/track_kernel.py:608"
+#: K3 against its twin: accumulators at K1's tolerances with the absolute
+#: part scaled to the 12x longer block (rtol 2e-3, atol 24); Doppler [Hz]
+#: and the code remainder [chips] as K1's.
+K3_TOL = {"acc_rtol": 2e-3, "acc_atol": 24.0, "carr_doppler": 0.05,
+          "rem_code_phase": 5e-4}
+#: Data bits per L3OC satellite: one rate-1/2 codeword of 2 * (24 + 6)
+#: symbols, 300 ms under the Barker(5) overlay, repeated.
+L3_BITS = 24
+#: Start of a slot's prompt history left out of the L3 checks: the
+#: 2-quadrant FLL pulls a handoff error of up to half a 250 Hz bin in
+#: within ~1 s (the reference test's 50 Hz handoff settles in 200 ms).
+L3_SETTLE_MS = 1000
 #: H100 SXM peaks: HBM bytes/s, f32 FLOP/s.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
@@ -147,37 +188,58 @@ def k1_inputs(C: int, n_blocks: int, device):
     return args, tfused.kernel_kwargs(SIG, TRK, n_blocks=n_blocks)
 
 
-def k1_compare(C: int, n_blocks: int, device) -> tuple:
-    """K1's wrapper against its plain twin on the same inputs on the
-    card; raises on a breach of test_track_kernel.py's tolerances.
-    Returns (largest deviation of each checked quantity, K1's bound at
-    this shape)."""
-    args, kw = k1_inputs(C, n_blocks, device)
-    k_out, _, k_pos, k_cph = tk.track_chunk_fused(*args, **kw)
-    r_out, _, r_pos, r_cph = tk.track_chunk_fused_ref(*args, **kw)
+def twin_parity(tag: str, inputs, kernel, twin, *, blk_lane: int,
+                acc_lanes, acc_tol: tuple, lane_tol: dict,
+                max_lsb: int) -> tuple:
+    """A kernel's wrapper against its plain twin on the same inputs on the
+    card: blksize and sample_pos exact, the carrier phase within max_lsb,
+    the accumulators within acc_tol (rtol, atol) and each named lane
+    within its atol (lane_tol {name: (lane, atol)}); raises on a breach.
+    Returns (largest deviation of each checked quantity, the twin's out
+    lanes as numpy)."""
+    args, kw = inputs
+    k_out, _, k_pos, k_cph = kernel(*args, **kw)
+    r_out, _, r_pos, r_cph = twin(*args, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(k_out[..., tk.O_BLKSIZE], r_out[..., tk.O_BLKSIZE]):
-        raise AssertionError(f"K1 C={C}: blksize differs from the twin")
+    if not torch.equal(k_out[..., blk_lane], r_out[..., blk_lane]):
+        raise AssertionError(f"{tag}: blksize differs from the twin")
     if not torch.equal(k_pos, r_pos):
-        raise AssertionError(f"K1 C={C}: sample_pos differs from the twin")
+        raise AssertionError(f"{tag}: sample_pos differs from the twin")
     dev = {"blksize_sample_pos": "exact"}
     dph = u32_numpy(k_cph).astype(np.int64) - u32_numpy(r_cph).astype(
         np.int64)
     dph = (dph + 2 ** 31) % 2 ** 32 - 2 ** 31
     dev["carr_phase_lsb"] = int(np.max(np.abs(dph)))
-    if dev["carr_phase_lsb"] > 4 * n_blocks * (SIG.samples_per_code + 2):
-        raise AssertionError(f"K1 C={C}: carrier phase beyond the "
-                             "1-LSB-per-block bound")
+    if dev["carr_phase_lsb"] > max_lsb:
+        raise AssertionError(f"{tag}: carrier phase beyond {max_lsb} LSB")
     ko, ro = k_out.cpu().numpy(), r_out.cpu().numpy()
-    lanes = [tk.O_IE, tk.O_QE, tk.O_IP, tk.O_QP, tk.O_IL, tk.O_QL]
-    np.testing.assert_allclose(ko[..., lanes], ro[..., lanes], rtol=2e-3,
-                               atol=2.0, err_msg=f"K1 C={C} accumulators")
+    lanes = list(acc_lanes)
+    np.testing.assert_allclose(ko[..., lanes], ro[..., lanes],
+                               rtol=acc_tol[0], atol=acc_tol[1],
+                               err_msg=f"{tag} accumulators")
     dev["acc_abs"] = float(np.max(np.abs(ko[..., lanes] - ro[..., lanes])))
-    for name, lane, atol in (("carr_doppler", tk.O_CARR_DOPPLER, 0.05),
-                             ("rem_code_phase", tk.O_REM, 5e-4)):
+    dev["acc_scale"] = float(np.max(np.abs(ro[..., lanes])))
+    for name, (lane, atol) in lane_tol.items():
         np.testing.assert_allclose(ko[..., lane], ro[..., lane], rtol=0,
-                                   atol=atol, err_msg=f"K1 C={C} {name}")
+                                   atol=atol, err_msg=f"{tag} {name}")
         dev[name] = float(np.max(np.abs(ko[..., lane] - ro[..., lane])))
+    return dev, ro
+
+
+def k1_compare(C: int, n_blocks: int, device) -> tuple:
+    """K1's wrapper against its plain twin on the card at
+    test_track_kernel.py's tolerances (carrier phase within one LSB step
+    flip per block, counted 4x as there). Returns (deviations, K1's bound
+    at this shape)."""
+    args, kw = inputs = k1_inputs(C, n_blocks, device)
+    dev, ro = twin_parity(
+        f"K1 C={C}", inputs, tk.track_chunk_fused, tk.track_chunk_fused_ref,
+        blk_lane=tk.O_BLKSIZE,
+        acc_lanes=(tk.O_IE, tk.O_QE, tk.O_IP, tk.O_QP, tk.O_IL, tk.O_QL),
+        acc_tol=(2e-3, 2.0),
+        lane_tol={"carr_doppler": (tk.O_CARR_DOPPLER, 0.05),
+                  "rem_code_phase": (tk.O_REM, 5e-4)},
+        max_lsb=4 * n_blocks * kw["blkp"])
 
     chunk, tab, _, finit = args[:4]
     k = tk._consts(**{n: kw[n] for n in ("code_length", "phases_per_chip",
@@ -193,10 +255,10 @@ def k1_compare(C: int, n_blocks: int, device) -> tuple:
     return dev, bound(n_bytes, 24.0 * samples)
 
 
-def k1_times(C: int, n_blocks: int, device, reps: int = 20) -> tuple:
-    """(kernel ms, plain twin ms) per call on the same inputs, timed with
-    CUDA events after a warm-up call of each."""
-    args, kw = k1_inputs(C, n_blocks, device)
+def kernel_times(inputs, kernel, twin, reps: int = 20) -> tuple:
+    """(kernel ms, plain twin ms) per call on the same inputs (args, kw),
+    timed with CUDA events after a warm-up call of each."""
+    args, kw = inputs
 
     def timed(fn, n):
         fn(*args, **kw)
@@ -209,8 +271,12 @@ def k1_times(C: int, n_blocks: int, device, reps: int = 20) -> tuple:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / n
 
-    return (timed(tk.track_chunk_fused, reps),
-            timed(tk.track_chunk_fused_ref, 1))
+    return timed(kernel, reps), timed(twin, 1)
+
+
+def k1_times(C: int, n_blocks: int, device) -> tuple:
+    return kernel_times(k1_inputs(C, n_blocks, device),
+                        tk.track_chunk_fused, tk.track_chunk_fused_ref)
 
 
 def acq_search_ms(device, reps: int = 20) -> float:
@@ -247,14 +313,18 @@ def acq_search_ms(device, reps: int = 20) -> float:
 
 class _Collector:
     """PVT records and per-stage host wall time (task_health) of the
-    measured window, from the telemetry bus."""
+    measured window, and every event of the run, from the telemetry
+    bus."""
 
     def __init__(self):
         self.pvt = []
         self.stages = {}
+        self.events = []
         self.enabled = False
 
     def __call__(self, rec):
+        if rec.get("type") == "event":
+            self.events.append(rec)
         if not self.enabled:
             return
         if rec.get("type") == "pvt":
@@ -357,41 +427,20 @@ def k2_inputs(C: int, n_blocks: int, device):
 
 
 def k2_compare(C: int, n_blocks: int, device) -> tuple:
-    """K2's wrapper against its plain twin on the same inputs on the card;
-    raises on a breach of K2_TOL. Returns (largest deviation of each
-    checked quantity, K2's bound at this shape)."""
-    args, kw = k2_inputs(C, n_blocks, device)
-    k_out, _, k_pos, k_cph = tk.track_chunk_boc_fused(*args, **kw)
-    r_out, _, r_pos, r_cph = tk.track_chunk_boc_fused_ref(*args, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(k_out[..., tk.OB_BLKSIZE], r_out[..., tk.OB_BLKSIZE]):
-        raise AssertionError(f"K2 C={C}: blksize differs from the twin")
-    if not torch.equal(k_pos, r_pos):
-        raise AssertionError(f"K2 C={C}: sample_pos differs from the twin")
-    dev = {"blksize_sample_pos": "exact"}
+    """K2's wrapper against its plain twin on the card under K2_TOL.
+    Returns (deviations, K2's bound at this shape)."""
+    args, kw = inputs = k2_inputs(C, n_blocks, device)
     blkp = kw["blkp"]
-    dph = u32_numpy(k_cph).astype(np.int64) - u32_numpy(r_cph).astype(
-        np.int64)
-    dph = (dph + 2 ** 31) % 2 ** 32 - 2 ** 31
-    dev["carr_phase_lsb"] = int(np.max(np.abs(dph)))
-    if dev["carr_phase_lsb"] > n_blocks * blkp:
-        raise AssertionError(f"K2 C={C}: carrier phase beyond one LSB "
-                             "step per block")
-    ko, ro = k_out.cpu().numpy(), r_out.cpu().numpy()
-    lanes = list(tk.OB_ACCS)
-    np.testing.assert_allclose(ko[..., lanes], ro[..., lanes],
-                               rtol=K2_TOL["acc_rtol"],
-                               atol=K2_TOL["acc_atol"],
-                               err_msg=f"K2 C={C} accumulators")
-    dev["acc_abs"] = float(np.max(np.abs(ko[..., lanes] - ro[..., lanes])))
-    dev["acc_scale"] = float(np.max(np.abs(ro[..., lanes])))
-    for name, lane in (("carr_doppler", tk.OB_CARR_DOPPLER),
-                       ("rem_code_phase", tk.OB_REM),
-                       ("rem_sub_phase", tk.OB_REM_SUB)):
-        np.testing.assert_allclose(ko[..., lane], ro[..., lane], rtol=0,
-                                   atol=K2_TOL[name],
-                                   err_msg=f"K2 C={C} {name}")
-        dev[name] = float(np.max(np.abs(ko[..., lane] - ro[..., lane])))
+    dev, ro = twin_parity(
+        f"K2 C={C}", inputs, tk.track_chunk_boc_fused,
+        tk.track_chunk_boc_fused_ref, blk_lane=tk.OB_BLKSIZE,
+        acc_lanes=tk.OB_ACCS,
+        acc_tol=(K2_TOL["acc_rtol"], K2_TOL["acc_atol"]),
+        lane_tol={name: (lane, K2_TOL[name]) for name, lane in (
+            ("carr_doppler", tk.OB_CARR_DOPPLER),
+            ("rem_code_phase", tk.OB_REM),
+            ("rem_sub_phase", tk.OB_REM_SUB))},
+        max_lsb=n_blocks * blkp)
 
     chunk, ctab, stab, _, finit = args[:5]
     k = tk._boc_consts(**{n: kw[n] for n in (
@@ -410,24 +459,10 @@ def k2_compare(C: int, n_blocks: int, device) -> tuple:
     return dev, bound(n_bytes, 37.0 * samples)
 
 
-def k2_times(C: int, n_blocks: int, device, reps: int = 20) -> tuple:
-    """(kernel ms, plain twin ms) per call on the same inputs, timed with
-    CUDA events after a warm-up call of each."""
-    args, kw = k2_inputs(C, n_blocks, device)
-
-    def timed(fn, n):
-        fn(*args, **kw)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(n):
-            fn(*args, **kw)
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / n
-
-    return (timed(tk.track_chunk_boc_fused, reps),
-            timed(tk.track_chunk_boc_fused_ref, 1))
+def k2_times(C: int, n_blocks: int, device) -> tuple:
+    return kernel_times(k2_inputs(C, n_blocks, device),
+                        tk.track_chunk_boc_fused,
+                        tk.track_chunk_boc_fused_ref)
 
 
 def galileo_main_path(device) -> dict:
@@ -494,6 +529,211 @@ def galileo_main_path(device) -> dict:
     }
 
 
+def l3_sky(prns, dopplers, rates, code_phases, n_ms: int, seed: int,
+           cn0_dbhz: float = 48.0) -> tuple:
+    """L3OC satellites as the reference simulator makes them
+    (tests/test_glonass_l3.py::overlay_streams): per satellite a pilot
+    code(prn) x NH(10) and, in quadrature, a data code(prn + 32) x
+    Barker(5) x its own L3_BITS seeded random bits, rate-1/2 encoded (the
+    codeword repeats). Returns (SatParams list, {prn: bits})."""
+    rng = np.random.default_rng(seed)
+    sats, bits = [], {}
+    nh = np.resize(glonass_l3.NH10.astype(np.float32), n_ms)
+    barker = np.resize(glonass_l3.BARKER5.astype(np.float32), n_ms)
+    for prn, fd, rate, cp in zip(prns, dopplers, rates, code_phases):
+        b = rng.integers(0, 2, L3_BITS).astype(np.int8)
+        sym = 1.0 - 2.0 * conv_encode(b, polys=l3nav.L3_POLYS,
+                                      invert=l3nav.L3_INVERT)
+        data = np.repeat(np.resize(sym, -(-n_ms // 5)), 5)[:n_ms] * barker
+        common = dict(doppler_hz=float(fd), doppler_rate=float(rate),
+                      code_phase_chips=float(cp), cn0_dbhz=cn0_dbhz)
+        sats += [SatParams(prn=glonass_l3.pilot_prn(prn), nav_bits=nh,
+                           carrier_phase=0.0, **common),
+                 SatParams(prn=glonass_l3.data_prn(prn), nav_bits=data,
+                           carrier_phase=np.pi / 2, **common)]
+        bits[prn] = b
+    return sats, bits
+
+
+def k3_inputs(C: int, n_blocks: int, device):
+    """K3's tensor and static arguments: C L3OC satellites at spread
+    Dopplers and code phases from the port's simulator at 24 Msps, the
+    trackers started 7 Hz off each truth."""
+    prns = [3, 7, 11, 14, 18, 22, 26, 30, 1, 5, 9, 27][:C]
+    dopp = [600.0 * i - 3300.0 for i in range(C)]
+    cps = [853.0 * i + 41.25 for i in range(C)]
+    sats, _ = l3_sky(prns, dopp, [0.0] * C, cps, n_blocks + 3, seed=9)
+    chunk = IFSimulator(LSIG, sats, noise_sigma=1.0, seed=9,
+                        device=device).generate_tensor(n_blocks + 3)
+    spc = LSIG.samples_per_code
+    spchip = LSIG.fs / LSIG.code_freq
+    state0 = tscan.TrackState.init(
+        np.array([int(round(cp * spchip)) % spc for cp in cps]),
+        np.array([fd + 7.0 for fd in dopp], np.float32),
+        aid_div=LTRK.aid_div, device=device)
+    tab = torch.as_tensor(tdual.dual_tap_rows(LSIG, LTRK, prns),
+                          device=device)
+    cb = u32_tensor(np.full(C, nco.freq_to_step_u32(LSIG.if_freq, LSIG.fs)),
+                    device)
+    args = tdual.dual_kernel_inputs(chunk, tab, cb, state0, LTRK)
+    return args, tdual.dual_kernel_kwargs(LSIG, LTRK, n_blocks=n_blocks)
+
+
+def k3_compare(C: int, n_blocks: int, device) -> tuple:
+    """K3's wrapper against its plain twin on the card under K3_TOL.
+    Returns (deviations, K3's bound at this shape)."""
+    args, kw = inputs = k3_inputs(C, n_blocks, device)
+    blkp = kw["blkp"]
+    dev, ro = twin_parity(
+        f"K3 C={C}", inputs, tk.track_chunk_dual_fused,
+        tk.track_chunk_dual_fused_ref, blk_lane=tk.OD_BLKSIZE,
+        acc_lanes=tk.OD_ACCS,
+        acc_tol=(K3_TOL["acc_rtol"], K3_TOL["acc_atol"]),
+        lane_tol={name: (lane, K3_TOL[name]) for name, lane in (
+            ("carr_doppler", tk.OD_CARR_DOPPLER),
+            ("rem_code_phase", tk.OD_REM))},
+        max_lsb=n_blocks * blkp)
+
+    chunk, tab, _, finit = args[:4]
+    k = tk._dual_consts(**{n: kw[n] for n in (
+        "code_length", "phases_per_chip", "span_chips", "base_code_step",
+        "fs", "coefs")})
+    rows = rows_used(finit[:, tk._F_REM].cpu().numpy(), ro[..., tk.OD_REM],
+                     [k["span"]], k["ph"], tab.shape[1])
+    n_rows = sum(len(np.unique(rows[c])) for c in range(C))
+    samples = float(ro[..., tk.OD_BLKSIZE].sum())
+    n_bytes = (chunk.numel() * 4 + n_rows * 6 * blkp
+               + 2 * finit.numel() * 4 + ro.size * 4)
+    return dev, bound(n_bytes, 36.0 * samples)
+
+
+def k3_times(C: int, n_blocks: int, device) -> tuple:
+    return kernel_times(k3_inputs(C, n_blocks, device),
+                        tk.track_chunk_dual_fused,
+                        tk.track_chunk_dual_fused_ref)
+
+
+def l3_bits_recovered(h: dict, bits: np.ndarray) -> tuple:
+    """(overlay sync, data bits recovered bit-exact) from one satellite's
+    prompt history, by tests/test_glonass_l3.py's chain: the NH(10) epoch
+    from the pilot prompts after the slot's first L3_SETTLE_MS, then the
+    Barker wipe and a Viterbi decode of the data prompts (q_p2) over one
+    codeword, searching the codeword phase on the 5 ms symbol grid over
+    the history's last two codewords."""
+    sync = l3nav.sync_overlay(h["i_p"][L3_SETTLE_MS:])
+    if not sync.found:
+        return sync, False
+    q = h["q_p2"] * sync.polarity
+    cw_ms = 10 * (len(bits) + 6)
+    start = L3_SETTLE_MS + sync.first_ms          # an NH epoch
+    base = start + 10 * max(0, (len(q) - 2 * cw_ms - start) // 10)
+    barker = glonass_l3.BARKER5.astype(np.float64)
+    for s0 in range(base, base + cw_ms, 5):
+        seg = q[s0: s0 + cw_ms]
+        if len(seg) < cw_ms:
+            break
+        dec = viterbi_decode(seg.reshape(-1, 5) @ barker,
+                             polys=l3nav.L3_POLYS, invert=l3nav.L3_INVERT)
+        if np.array_equal(dec.astype(np.int8), bits):
+            return sync, True
+    return sync, False
+
+
+def l3_main_path(device, k3_ms: float) -> dict:
+    """glonass_l3oc_live_12ch through the port's manager: 8 satellites in
+    the sky, 2 absent ones in the pool, 9 s of signal made in 1 s pieces
+    (2 s warm-up, 6 s measured). k3_ms: K3's time per launch, for its
+    share of the wall."""
+    seconds, n_channels, epoch_ms, sync_every = 9, 12, 500, 2
+    n_ms, meas_ms = seconds * 1000, 6000
+    prns = [3, 7, 11, 14, 18, 22, 26, 30]
+    absent = [5, 9]
+    rng = np.random.default_rng(31)
+    dopp = rng.permutation(np.linspace(-3600.0, 3600.0, len(prns)))
+    rates = rng.uniform(-0.55, 0.55, len(prns))
+    cps = (np.arange(len(prns)) * 10230.0 / len(prns)
+           + rng.uniform(0.0, 1000.0, len(prns)))
+    sats, bits = l3_sky(prns, dopp, rates, cps, n_ms + 20, seed=32)
+    t0 = time.perf_counter()
+    sim = IFSimulator(LSIG, sats, noise_sigma=1.0, seed=33, device=device)
+    buf = np.concatenate([sim.generate(1000, ms0)
+                          for ms0 in range(0, n_ms, 1000)])
+    src = DevicePackedArraySource(buf, fmt="sm2", scale=1.0, device=device)
+    del buf
+    setup_s = time.perf_counter() - t0
+    pool = prns + absent
+    cfg = ReceiverConfig(
+        signal=LSIG,
+        acq=AcqConfig(doppler_band=8e3, coherent_ms=1, threshold=2.5,
+                      doppler_step=250.0, prn_list=tuple(pool)),
+        track=LTRK, nav=NavConfig(), n_channels=n_channels)
+    navr = OnlineNavigator(LSIG, cfg.nav, mode="lsq")
+    coll = _Collector()
+    tlm = Telemetry(sink=None)
+    tlm.subscribe(coll)
+    warm_ms = 2 * sync_every * epoch_ms
+    tk.reset_launches()
+    mgr = ChannelManager(
+        src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
+        reacq_period_ms=1000, sync_every=sync_every, navigator=navr,
+        prn_pool=pool, prefetch=True, readback="compact", engine="auto")
+    mgr.run(warm_ms)
+    k3_warm = tk.LAUNCHES["track_chunk_dual_fused"]
+    coll.enabled = True
+    t0 = time.perf_counter()
+    recs = mgr.run(meas_ms)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    coll.enabled = False
+    launches = dict(tk.LAUNCHES)
+    t_end = (recs[-1].epoch_ms + epoch_ms) * 1e-3
+    sky = {}
+    for prn, fd, rate in zip(prns, dopp, rates):
+        slot = next((i for i, s in enumerate(mgr.slots) if s.prn == prn),
+                    None)
+        row = {"state": mgr.slots[slot].state.value if slot is not None
+               else "idle",
+               "events": [(e["epoch_ms"], e["what"], e.get("why"),
+                           e.get("doppler_hz")) for e in coll.events
+                          if e.get("prn") == prn
+                          and e["what"] != "channel_confirmed"]}
+        if slot is not None:
+            h = mgr.prompt_stream(prn)
+            # The last epoch's mean Doppler against the truth at its
+            # middle (one block's value carries the PLL's jitter).
+            row["doppler_err_hz"] = float(
+                h["carr_doppler"][-epoch_ms:].mean()
+                - (fd + rate * (t_end - 0.5 * epoch_ms * 1e-3)))
+            row["cn0_dbhz"] = float(recs[-1].cn0_dbhz[slot])
+            sync, ok = l3_bits_recovered(h, bits[prn])
+            row.update(overlay_found=bool(sync.found),
+                       overlay_quality=float(sync.quality), bits_exact=ok)
+        sky[prn] = row
+    wall = t1 - t0
+    k3_meas = launches["track_chunk_dual_fused"] - k3_warm
+    return {
+        "realtime_factor_overall": meas_ms / 1000.0 / wall,
+        "measured_ms": meas_ms,
+        "wall_s": wall,
+        "signal_setup_s": setup_s,
+        "engine": mgr.engine,
+        "sky": sky,
+        "confirmed_prns": sorted({e["prn"] for e in coll.events
+                                  if e["what"] == "channel_confirmed"}),
+        "absent_prns": absent,
+        "live_nav_unsupported_events": sum(
+            e["what"] == "live_nav_unsupported" for e in coll.events),
+        "k3_launches": launches["track_chunk_dual_fused"],
+        "k3_launches_measured": k3_meas,
+        "k3_share_of_wall": k3_meas * k3_ms * 1e-3 / wall,
+        "k1_launches": launches["track_chunk_fused"],
+        "k2_launches": launches["track_chunk_boc_fused"],
+        "stage_wall_s": {k: round(v, 4) for k, v in
+                         sorted(coll.stages.items())},
+    }
+
+
 def main() -> int:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -510,7 +750,7 @@ def main() -> int:
     built = tk.build_all()
     build_wall = time.perf_counter() - t0
     k1b = built["track_chunk_fused"]
-    print(f"[2 build] both kernels in {build_wall:.2f} s wall; K1 "
+    print(f"[2 build] three kernels in {build_wall:.2f} s wall; K1 "
           f"{k1b.path.name} built in {k1b.build_s:.2f} s; "
           f"{ptxas(k1b)}", flush=True)
 
@@ -594,6 +834,65 @@ def main() -> int:
         raise AssertionError(f"galileo main path checks failed: {failed} "
                              f"(modules: {refused[:5]})")
 
+    # 10. K3 build record and tap-table sizes at C=12, from the shapes.
+    k3b = built["track_chunk_dual_fused"]
+    R, _, blkp3 = tdual.dual_table_shape(LSIG)
+    bp3 = -(-blkp3 // 128) * 128
+    print(f"[10 K3 build] {k3b.path.name} built in {k3b.build_s:.2f} s "
+          f"(in parallel with K1 and K2); {ptxas(k3b)}; tap table at C=12: "
+          f"{12 * R * 6 * blkp3 * 1e-6:.1f} MB (int8, 6 planes) against "
+          f"{12 * R * 8 * bp3 * 4e-6:.1f} MB in the TPU layout (f32, "
+          f"8 planes, lanes padded; {12 * R * 6 * blkp3 * 4e-6:.1f} MB as "
+          f"f32 6 planes)", flush=True)
+
+    # 11. K3 against its plain twin on the card.
+    l500, (k3_bound_ms, k3_bound_by) = k3_compare(12, 500, dev)
+    l6, _ = k3_compare(3, 6, dev)
+    print(f"[11 K3 parity] tolerances {json.dumps(K3_TOL)} | C=12x500: "
+          f"{json.dumps(l500)} | C=3x6: {json.dumps(l6)} | bound at "
+          f"C=12x500 {k3_bound_ms:.5f} ms ({k3_bound_by})", flush=True)
+
+    # 12. K3 time against the twin.
+    k3_ms, k3p_ms = k3_times(12, 500, dev)
+    k3l_ms, k3lp_ms = k3_times(12, 1000, dev)
+    print(f"[12 K3 time] C=12x500 blocks (0.500 s of signal at 24 Msps): "
+          f"kernel {k3_ms:.4f} ms (real-time factor {500.0 / k3_ms:.1f}, "
+          f"{1e3 * k3_ms / 500:.2f} us per block), plain twin "
+          f"{k3p_ms:.2f} ms; C=12x1000 (1.000 s): kernel {k3l_ms:.4f} ms "
+          f"(real-time factor {1000.0 / k3l_ms:.1f}), twin {k3lp_ms:.2f} "
+          f"ms; bound at C=12x500 {k3_bound_ms:.5f} ms ({k3_bound_by})",
+          flush=True)
+
+    # 13. GLONASS L3OC main path.
+    lres = l3_main_path(dev, k3_ms)
+    print(f"[13 glonass l3oc main path] {json.dumps(lres)}", flush=True)
+    refused = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "gnsstpu"))
+    rows = lres["sky"].values()
+    lchecks = {
+        "every sky SV in a TRACKING slot": all(
+            r["state"] == "tracking" for r in rows),
+        "|last epoch's Doppler - truth| < 5 Hz": all(
+            abs(r.get("doppler_err_hz", 1e9)) < 5.0 for r in rows),
+        "C/N0 > 42 dB-Hz": all(r.get("cn0_dbhz", 0.0) > 42.0 for r in rows),
+        "no absent SV confirmed": not set(lres["confirmed_prns"])
+        & set(lres["absent_prns"]),
+        "overlay sync quality >= 0.9": all(
+            r.get("overlay_found") and r["overlay_quality"] >= 0.9
+            for r in rows),
+        "data bits bit-exact": all(r.get("bits_exact") for r in rows),
+        "live_nav_unsupported once": lres["live_nav_unsupported_events"] == 1,
+        "k3_launches > 0, K1 and K2 none": (lres["k3_launches"] > 0
+                                            and lres["k1_launches"] == 0
+                                            and lres["k2_launches"] == 0),
+        "no jax or gnsstpu module loaded": not refused,
+        "realtime_factor_overall >= 1": lres["realtime_factor_overall"] >= 1,
+    }
+    failed = [k for k, ok in lchecks.items() if not ok]
+    if failed:
+        raise AssertionError(f"glonass l3oc main path checks failed: "
+                             f"{failed} (modules: {refused[:5]})")
+
     print(json.dumps({"kernels": [
         {"name": "track_chunk_fused", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": res["k1_launches"],
@@ -605,6 +904,11 @@ def main() -> int:
          "launches": gres["k2_launches"], "max_abs_err": g125["acc_abs"],
          "ms": k2_ms, "plain_ms": k2p_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": None},
+        {"name": "track_chunk_dual_fused", "route": "cuda",
+         "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "launches": lres["k3_launches"], "max_abs_err": l500["acc_abs"],
+         "ms": k3_ms, "plain_ms": k3p_ms, "bound_ms": k3_bound_ms,
+         "bound_by": k3_bound_by, "library_ms": None},
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

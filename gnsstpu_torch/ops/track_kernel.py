@@ -1,14 +1,15 @@
 """The fused tracking kernels (port of gnsstpu/ops/track_kernel.py).
 
 K1 `track_chunk_fused` (single-code DLL / FLL-assisted PLL: GPS L1 C/A,
-GLONASS L1/L2 OF, BeiDou B1I) and K2 `track_chunk_boc_fused` (the Galileo
-E1B BOC(1,1) double estimator) each run all n_blocks code periods of C
-channels in one launch of a hand-written CUDA kernel (csrc/track_fused.cu,
-csrc/track_boc_fused.cu; see the notes there for what bounds them on an
-H100). `track_chunk_fused_ref` and `track_chunk_boc_fused_ref` are their
-plain PyTorch twins: the same algorithm with the block loop in Python,
-channels batched. A wrapper takes its twin only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.
+GLONASS L1/L2 OF, BeiDou B1I), K2 `track_chunk_boc_fused` (the Galileo
+E1B BOC(1,1) double estimator) and K3 `track_chunk_dual_fused` (GLONASS
+L3OC pilot + data) each run all n_blocks code periods of C channels in
+one launch of a hand-written CUDA kernel (csrc/track_fused.cu,
+csrc/track_boc_fused.cu, csrc/track_dual_fused.cu; see the notes there for
+what bounds them on an H100). The `*_ref` functions are their plain
+PyTorch twins: the same algorithm with the block loop in Python, channels
+batched. A wrapper takes its twin only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 
 K1 layouts (the reference's, with the chunk kept [N, 2] and u32 values in
 int64 tensors):
@@ -28,6 +29,12 @@ carrbase and two tap tables, E/P/L planes of the reference's
   ctab      f32 [C, Rc, 3, blkp]  per-channel primary-code tap rows
   stab      f32 [Rs, 3, blkp]     shared meandr (subcarrier) tap rows
 and returns out f32 [n_blocks, C, 24] (OB_* lanes), ffin, pos, cphase.
+
+K3 takes the same chunk / pos0 / finit / cinit / carrbase and one tap
+table, the six used planes of the reference's f32 [.., 8, BP] table as
+int8 (every tap is +-1):
+  tab       i8  [C, R, 6, blkp]   pilot E/P/L, data E/P/L tap rows
+and returns out f32 [n_blocks, C, 24] (OD_* lanes), ffin, pos, cphase.
 """
 
 from __future__ import annotations
@@ -63,11 +70,22 @@ NOUT_B = 24
 #: The ten K2 accumulator lanes, in output order.
 OB_ACCS = tuple(range(OB_IEP, OB_QLP + 1))
 
+# K3 output lanes (accumulator order as ops.dualcode.DualBlockOut).
+(OD_IE, OD_QE, OD_IP, OD_QP, OD_IL, OD_QL,
+ OD_IE2, OD_QE2, OD_IP2, OD_QP2, OD_IL2, OD_QL2,
+ OD_CARR_DOPPLER, OD_CODE_FREQ_DELTA, OD_REM, OD_BLKSIZE,
+ OD_DLL_DISC, OD_PLL_DISC) = range(18)
+NOUT_D = 24
+#: The twelve K3 accumulator lanes, in output order.
+OD_ACCS = tuple(range(OD_IE, OD_QL2 + 1))
+
 SOURCE = "track_fused.cu"
 BOC_SOURCE = "track_boc_fused.cu"
+DUAL_SOURCE = "track_dual_fused.cu"
 #: Kernel launches since the last reset (plain count; CPU runs of the
 #: plain twins are not launches).
-LAUNCHES = {"track_chunk_fused": 0, "track_chunk_boc_fused": 0}
+LAUNCHES = {"track_chunk_fused": 0, "track_chunk_boc_fused": 0,
+            "track_chunk_dual_fused": 0}
 
 
 def reset_launches() -> None:
@@ -445,9 +463,10 @@ def build_all() -> dict:
     cuda_build.BuiltLibrary}."""
     from gnsstpu_torch.ops import cuda_build
 
-    cuda_build.load_many([SOURCE, BOC_SOURCE])
+    cuda_build.load_many([SOURCE, BOC_SOURCE, DUAL_SOURCE])
     return {"track_chunk_fused": _lib(),
-            "track_chunk_boc_fused": _boc_lib()}
+            "track_chunk_boc_fused": _boc_lib(),
+            "track_chunk_dual_fused": _dual_lib()}
 
 
 def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
@@ -506,4 +525,183 @@ def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
         raise RuntimeError(
             f"track_chunk_boc_fused launch failed: {msg} ({rc})")
     LAUNCHES["track_chunk_boc_fused"] += 1
+    return out, ffin, pos, cph
+
+
+# ---------------------------------------------------------------------------
+# K3: the dual-code (pilot + data) fused kernel (GLONASS L3OC).
+# ---------------------------------------------------------------------------
+
+#: K3's f32 constants, in the order csrc/track_dual_fused.cu reads them.
+DUAL_CONSTS = ("code_length", "base_code_step", "inv_fs", "nco_scale", "ph",
+               "span", "ang_scale", "inv_pi", "inv_2pi", "k1", "k2", "k3",
+               "c_dll_p", "c_dll_i")
+
+
+def _dual_consts(*, code_length, phases_per_chip, span_chips,
+                 base_code_step, fs, coefs):
+    """K3's f32 constants, rounded from Python doubles exactly as the
+    reference rounds its closure constants."""
+    k1, k2, k3, c_dll_p, c_dll_i = coefs
+    return dict(
+        code_length=f32(code_length), base_code_step=f32(base_code_step),
+        inv_fs=f32(1.0 / fs), nco_scale=f32(4294967296.0 / fs),
+        ph=f32(float(phases_per_chip)), span=f32(span_chips),
+        ang_scale=f32(2.0 * np.pi / 4294967296.0),
+        inv_pi=f32(1.0 / np.pi), inv_2pi=f32(1.0 / (2.0 * np.pi)),
+        k1=f32(k1), k2=f32(k2), k3=f32(k3),
+        c_dll_p=f32(c_dll_p), c_dll_i=f32(c_dll_i))
+
+
+def track_chunk_dual_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
+                               n_blocks: int, blkp: int, code_length: int,
+                               phases_per_chip: int, span_chips: float,
+                               base_code_step: float, fs: float, coefs):
+    """Plain PyTorch version of K3 (same algorithm, block loop in Python).
+    coefs = (k1, k2, k3, c_dll_p, c_dll_i)."""
+    k = _dual_consts(code_length=code_length,
+                     phases_per_chip=phases_per_chip, span_chips=span_chips,
+                     base_code_step=base_code_step, fs=fs, coefs=coefs)
+    dev = chunk.device
+    C, R = tab.shape[0], tab.shape[1]
+    n = chunk.shape[0]
+    st = finit.clone()
+    ph = cinit.clone()
+    pos = pos0.to(torch.int64)
+    kk = torch.arange(blkp, device=dev)
+    ch = torch.arange(C, device=dev)
+    outs = []
+    for _ in range(n_blocks):
+        rem = st[:, _F_REM]
+        step = k["base_code_step"] + st[:, _F_CODE_DELTA] * k["inv_fs"]
+        blkf = torch.ceil((k["code_length"] - rem) / step)
+        blk = torch.clamp(blkf.to(torch.int64), 1, blkp)
+        cstep = (carrbase + torch.round(st[:, _F_CARR_DELTA]
+                                        * k["nco_scale"]).to(torch.int64)
+                 ) & U32_MASK
+        # One row per block; the E/L spacing is baked into the planes.
+        row = torch.clamp(torch.round((rem + k["span"]) * k["ph"]
+                                      ).to(torch.int64), 0, R - 1)
+
+        # Samples outside the chunk read as zero, as in the kernel.
+        idx = pos[:, None] + kk[None, :]
+        inside = ((idx >= 0) & (idx < n)).to(torch.float32)
+        win = chunk[torch.clamp(idx, 0, n - 1)]            # [C, blkp, 2]
+        xi, xq = win[..., 0] * inside, win[..., 1] * inside
+        mask = (kk[None, :] < blk[:, None]).to(torch.float32)
+        lo_c, lo_s = _factored_lo(ph, cstep, blkp, k["ang_scale"])
+        bb_i = (xi * lo_c + xq * lo_s) * mask
+        bb_q = (xq * lo_c - xi * lo_s) * mask
+        taps = tab[ch, row].to(torch.float32)              # [C, 6, blkp]
+        accs = []
+        for j in range(6):
+            accs += [(taps[:, j] * bb_i).sum(1), (taps[:, j] * bb_q).sum(1)]
+        ie, qe, ip, qp, il, ql = accs[:6]
+
+        ip_prev, qp_prev = st[:, _F_IP_PREV], st[:, _F_QP_PREV]
+        cross = ip * qp_prev - ip_prev * qp
+        dot = ip * ip_prev + qp * qp_prev
+        safe = torch.where(torch.abs(dot) < 1e-30,
+                           torch.where(dot < 0, torch.full_like(dot, -1e-30),
+                                       torch.full_like(dot, 1e-30)), dot)
+        freq_err = torch.atan(cross / safe) * k["inv_pi"]
+        denom = torch.where(torch.abs(ip) < 1e-10,
+                            torch.full_like(ip, 1e-10), ip)
+        carr_err = torch.atan(qp / denom) * k["inv_2pi"]
+        carr_nco = (st[:, _F_CARR_NCO] + k["k1"] * carr_err
+                    - k["k2"] * st[:, _F_OLD_CARR_ERR] - k["k3"] * freq_err)
+        carr_delta = st[:, _F_DOPPLER_BASIS] + carr_nco
+        code_err = env_err(ie, qe, il, ql)
+        code_nco = (st[:, _F_CODE_NCO]
+                    + k["c_dll_p"] * (code_err - st[:, _F_OLD_CODE_ERR])
+                    + code_err * k["c_dll_i"])
+        code_delta = -code_nco + carr_delta * st[:, _F_INV_AID]
+        bsf = blk.to(torch.float32)
+        new_rem = rem + bsf * step - k["code_length"]
+
+        zero = torch.zeros_like(ip)
+        outs.append(torch.stack(
+            accs + [carr_delta, code_delta, new_rem, bsf, code_err,
+                    carr_err] + [zero] * (NOUT_D - 18), dim=1))
+        st = st.clone()
+        for lane, v in ((_F_REM, new_rem), (_F_CODE_DELTA, code_delta),
+                        (_F_CARR_DELTA, carr_delta), (_F_CARR_NCO, carr_nco),
+                        (_F_OLD_CARR_ERR, carr_err), (_F_CODE_NCO, code_nco),
+                        (_F_OLD_CODE_ERR, code_err), (_F_IP_PREV, ip),
+                        (_F_QP_PREV, qp)):
+            st[:, lane] = v
+        ph = (ph + blk * cstep) & U32_MASK
+        pos = pos + blk
+    out = (torch.stack(outs) if outs
+           else torch.zeros((0, C, NOUT_D), dtype=torch.float32, device=dev))
+    return out, st, pos.to(torch.int32), ph
+
+
+def _dual_lib():
+    from gnsstpu_torch.ops import cuda_build
+
+    built = cuda_build.load(DUAL_SOURCE)
+    fn = built.lib.track_chunk_dual_fused_cuda
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 9 + [i] * 4
+                       + [p, i, p])
+        fn.restype = ctypes.c_int
+        err = built.lib.track_dual_fused_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return built
+
+
+def track_chunk_dual_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
+                           n_blocks: int, blkp: int, code_length: int,
+                           phases_per_chip: int, span_chips: float,
+                           base_code_step: float, fs: float, coefs):
+    """Run K3. coefs = (k1, k2, k3, c_dll_p, c_dll_i).
+
+    Dtypes and shapes are checked on every device. CPU tensors then run
+    the plain twin; CUDA tensors launch the kernel (on
+    torch.cuda.current_stream()) or raise.
+    """
+    kw = dict(n_blocks=n_blocks, blkp=blkp, code_length=code_length,
+              phases_per_chip=phases_per_chip, span_chips=span_chips,
+              base_code_step=base_code_step, fs=fs, coefs=coefs)
+    dev = chunk.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"track_chunk_dual_fused: unsupported device {dev}")
+    C, R = tab.shape[0], tab.shape[1]
+    _check("chunk", chunk, torch.float32, (chunk.shape[0], 2), dev)
+    _check("tab", tab, torch.int8, (C, R, 6, blkp), dev)
+    _check("pos0", pos0, torch.int32, (C,), dev)
+    _check("finit", finit, torch.float32, (C, NF), dev)
+    _check("cinit", cinit, torch.int64, (C,), dev)
+    _check("carrbase", carrbase, torch.int64, (C,), dev)
+    if n_blocks < 0:
+        raise ValueError("n_blocks must be >= 0")
+    if dev.type == "cpu":
+        return track_chunk_dual_fused_ref(chunk, tab, pos0, finit, cinit,
+                                          carrbase, **kw)
+    out = torch.empty((n_blocks, C, NOUT_D), dtype=torch.float32,
+                      device=dev)
+    ffin = torch.empty((C, NF), dtype=torch.float32, device=dev)
+    pos = torch.empty((C,), dtype=torch.int32, device=dev)
+    cph = torch.empty((C,), dtype=torch.int64, device=dev)
+    k = _dual_consts(code_length=code_length,
+                     phases_per_chip=phases_per_chip, span_chips=span_chips,
+                     base_code_step=base_code_step, fs=fs, coefs=coefs)
+    consts = (ctypes.c_float * len(DUAL_CONSTS))(
+        *(k[name] for name in DUAL_CONSTS))
+    built = _dual_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = built.lib.track_chunk_dual_fused_cuda(
+        chunk.data_ptr(), chunk.shape[0], tab.data_ptr(), pos0.data_ptr(),
+        finit.data_ptr(), cinit.data_ptr(), carrbase.data_ptr(),
+        out.data_ptr(), ffin.data_ptr(), pos.data_ptr(), cph.data_ptr(),
+        C, n_blocks, R, blkp, ctypes.cast(consts, ctypes.c_void_p),
+        len(DUAL_CONSTS), stream)
+    if rc != 0:
+        msg = built.lib.track_dual_fused_error_string(rc).decode()
+        raise RuntimeError(
+            f"track_chunk_dual_fused launch failed: {msg} ({rc})")
+    LAUNCHES["track_chunk_dual_fused"] += 1
     return out, ffin, pos, cph

@@ -1,6 +1,6 @@
 """Channel manager: acquisition scheduling, lock supervision, reacquisition
-(port of gnsstpu/runtime/manager.py for the 1 ms-code scan family and
-Galileo E1B, on one device).
+(port of gnsstpu/runtime/manager.py for the 1 ms-code scan family, Galileo
+E1B and GLONASS L3OC, on one device).
 
 The device tracks a fixed [C]-slot channel bank; the host supervises at
 epoch boundaries: it reads back prompt statistics, assesses lock, swaps
@@ -9,7 +9,9 @@ life cycle with CONFIRM probation, _supervise_epoch/_supervise_block,
 history trimming, runtime commands, watchdog and stall recovery,
 prompt_stream) is the reference's, copied, and family-agnostic: the
 tracking engine (tracking.engines: K1 for the 1 ms codes, K2 for E1B's
-4 ms blocks) hands it the same per-block observables. The device parts
+4 ms blocks, K3 for L3OC's pilot + data) hands it the same per-block
+observables; a dual-component engine adds the data prompts, which ride two
+more stream lanes into the i_p2 / q_p2 history. The device parts
 are torch: slot rows are written in place, a superepoch is a Python loop
 of k kernel launches each followed by its device lock summary, and the
 readback is one host copy per superepoch.
@@ -19,7 +21,8 @@ one upload + k dispatches + one readback. prefetch=True lets the device
 run free: a reader thread reads and uploads chunk n+1 while chunk n runs
 and the host supervises chunk n-1 (one more superepoch of decision lag).
 readback='compact' ships the per-block observables as one byte-packed
-buffer (f16 prompts, u16 rem, i16 blksize delta, f32 Doppler + stats).
+buffer (f16 prompts, pilot and data for L3OC, u16 rem, i16 blksize delta,
+f32 Doppler + stats).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 a device mesh, the cross-superepoch weak-tier accumulation, FDMA
@@ -159,8 +162,8 @@ class ChannelManager:
     sync_every: supervision epochs per device round trip (superepoch).
     wire: host->device sample wire format — 'auto' uses
       source.wire_format when the source provides read_packed().
-    engine: 'auto' (= 'fused': kernel K1, or K2 for Galileo E1B), 'fused',
-      'gather', 'table' (the exact scan engines).
+    engine: 'auto' (= 'fused': kernel K1, K2 for Galileo E1B, K3 for
+      GLONASS L3OC), 'fused', 'gather', 'table' (the exact scan engines).
     """
 
     def __init__(self, source, cfg: ReceiverConfig, *, device="cuda",
@@ -588,7 +591,7 @@ class ChannelManager:
 
     # --- device-side epoch summary ---
 
-    # Stream lanes [E, C, 5] and stats lanes [C, 4].
+    # Stream lanes [E, C, 5(+2 data prompts)] and stats lanes [C, 4].
     (_S_IP, _S_QP, _S_REM, _S_BLK, _S_DOPP, _S_IP2, _S_QP2) = range(7)
     (_T_CN0, _T_PLL, _T_CODE, _T_LOCKED) = range(4)
 
@@ -596,8 +599,10 @@ class ChannelManager:
         """summarize(obs, cn0_drop) -> the epoch's device summary: lock
         stats [C, 4] from assess_device plus the per-block streams, as
         f32 lanes or (compact) f16 prompts / u16 rem / i16 blksize delta /
-        f32 Doppler."""
+        f32 Doppler. A dual-component engine adds its data prompts (two
+        more lanes or prompts)."""
         m = min(20, max(1, self._bpe))
+        dual = self.eng.has_data_component
         compact = self.readback == "compact"
         spc_nom = int(self.sig.samples_per_code)
         t_int = self.sig.code_period_s
@@ -615,21 +620,23 @@ class ChannelManager:
                 scale = float(np.float32(1.0 / spc_nom))
                 rem_u16 = torch.clamp(torch.round(obs.rem * 65535.0),
                                       0, 65535).to(torch.int32)
-                return ((torch.stack([obs.ip * scale, obs.qp * scale],
-                                     dim=-1)).to(torch.float16),
+                pp = [obs.ip, obs.qp] + ([obs.ip2, obs.qp2] if dual else [])
+                return (torch.stack([p * scale for p in pp],
+                                    dim=-1).to(torch.float16),
                         rem_u16,
                         (obs.blksize - spc_nom).to(torch.int16),
                         obs.dopp, st)
-            streams = torch.stack(
-                [obs.ip, obs.qp, obs.rem, obs.blksize.to(torch.float32),
-                 obs.dopp], dim=-1)                             # [E, C, 5]
-            return streams, st
+            lanes = [obs.ip, obs.qp, obs.rem,
+                     obs.blksize.to(torch.float32), obs.dopp]
+            if dual:
+                lanes += [obs.ip2, obs.qp2]
+            return torch.stack(lanes, dim=-1), st       # [E, C, 5(+2)]
 
         return summarize
 
     def _pack_epochs(self, summaries) -> list:
         """K epoch summaries -> the tensors of one readback: (streams
-        [K,E,C,5], stats [K,C,4]), or one byte buffer (compact)."""
+        [K,E,C,5(+2)], stats [K,C,4]), or one byte buffer (compact)."""
         leaves = [torch.stack(xs) for xs in zip(*summaries)]
         if self.readback != "compact":
             return leaves
@@ -639,31 +646,36 @@ class ChannelManager:
                            for t in (pp, rem16, blkd, dopp, st)])]
 
     def _decode_readback(self, raw: list):
-        """Canonical (streams [K,E,C,5] f32, stats [K,C,4]) from the host
-        copy of a packed readback."""
+        """Canonical (streams [K,E,C,5(+2)] f32, stats [K,C,4]) from the
+        host copy of a packed readback."""
         if self.readback != "compact":
             return raw[0], raw[1]
+        dual = self.eng.has_data_component
         buf = raw[0]
+        P = 4 if dual else 2
         E, C = self._bpe, self.cfg.n_channels
-        per_k = E * C * (2 * 2 + 2 + 2 + 4) + C * 16
+        per_k = E * C * (2 * P + 2 + 2 + 4) + C * 16
         K = buf.size // per_k
-        n = [K * E * C * 2 * 2, K * E * C * 2, K * E * C * 2,
+        n = [K * E * C * P * 2, K * E * C * 2, K * E * C * 2,
              K * E * C * 4, K * C * 16]
         o = np.cumsum([0] + n)
-        pp = np.frombuffer(buf[o[0]:o[1]], np.float16).reshape(K, E, C, 2)
+        pp = np.frombuffer(buf[o[0]:o[1]], np.float16).reshape(K, E, C, P)
         rem = (np.frombuffer(buf[o[1]:o[2]], np.uint16).reshape(K, E, C)
                .astype(np.float32) / np.float32(65535.0))
         blkd = np.frombuffer(buf[o[2]:o[3]], np.int16).reshape(K, E, C)
         dopp = np.frombuffer(buf[o[3]:o[4]], np.float32).reshape(K, E, C)
         st = np.frombuffer(buf[o[4]:o[5]], np.float32).reshape(K, C, 4)
         spc = np.float32(self.sig.samples_per_code)
-        streams = np.empty((K, E, C, 5), np.float32)
+        streams = np.empty((K, E, C, 7 if dual else 5), np.float32)
         streams[..., self._S_IP] = pp[..., 0].astype(np.float32) * spc
         streams[..., self._S_QP] = pp[..., 1].astype(np.float32) * spc
         streams[..., self._S_REM] = rem
         streams[..., self._S_BLK] = (blkd.astype(np.float32)
                                      + self.sig.samples_per_code)
         streams[..., self._S_DOPP] = dopp
+        if dual:
+            streams[..., self._S_IP2] = pp[..., 2].astype(np.float32) * spc
+            streams[..., self._S_QP2] = pp[..., 3].astype(np.float32) * spc
         return streams, st
 
     # --- main loop ---
@@ -827,7 +839,7 @@ class ChannelManager:
     def _super_step(self, chunk, bank, state, cn0_drop: float, delta: int,
                     mask: np.ndarray, newsp: np.ndarray, k: int):
         """One superepoch: retarget sample_pos (base tracking + fresh slot
-        rows), then k epochs of (K1 launch + device summary). Returns
+        rows), then k epochs of (kernel launch + device summary). Returns
         (state', readback tensors)."""
         dev = self.device
         sp = state.corr.sample_pos + int(delta)
@@ -1166,6 +1178,9 @@ class ChannelManager:
             h = self.history[s.prn]
             h["i_p"].append(ip[:, i].copy())
             h["q_p"].append(qp[:, i].copy())
+            if self.eng.has_data_component and streams is not None:
+                h["i_p2"].append(streams[:, i, self._S_IP2].copy())
+                h["q_p2"].append(streams[:, i, self._S_QP2].copy())
             h["carr_doppler"].append(dopp_full[:, i].copy())
             h["abs_sample"].append(abs_samp[:, i].copy())
             if streams is not None and "_cph" in h:

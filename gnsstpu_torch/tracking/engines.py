@@ -5,7 +5,10 @@ gnsstpu/tracking/engines.py).
     over the exact scan tracker ('gather' / 'table') or the fused K1
     tracker ('fused');
   * BocEngine drives Galileo E1B (4 ms code periods) over the exact
-    double-estimator scan ('boc') or kernel K2 ('boc_fused').
+    double-estimator scan ('boc') or kernel K2 ('boc_fused');
+  * DualEngine drives GLONASS L3OC (pilot + data) over the exact dual scan
+    ('dual') or kernel K3 ('dual_fused'), and hands the data-component
+    prompts (ip2 / qp2) to the manager's history.
 Each returns per-block observables in the EpochObs layout the manager's
 supervision reads, so the manager is family-agnostic; one block is one
 code period (period_ms). The slot bank lives in host numpy arrays; the
@@ -56,9 +59,7 @@ def make_engine(cfg: ReceiverConfig, mode: str = "auto"):
     if name == "galileo_e1b":
         return BocEngine(cfg, fused=resolve_engine(mode) == "fused")
     if name == "glonass_l3oc":
-        raise NotImplementedError(
-            "GLONASS L3OC (DualEngine, kernel K3) is not ported yet: "
-            "ROADMAP queue 1, 'the L3OC family with K3'")
+        return DualEngine(cfg, fused=resolve_engine(mode) == "fused")
     return ScanFamilyEngine(cfg, mode)
 
 
@@ -240,6 +241,98 @@ class BocEngine(_Base):
                 ip=a.i_pp, qp=a.q_pp, ie=a.i_pe, qe=a.q_pe,
                 il=a.i_pl, ql=a.q_pl, rem=a.rem_code_phase,
                 blksize=a.blksize, dopp=out.carr_doppler)
+            return state, obs
+
+        return step
+
+
+class DualEngine(_Base):
+    """GLONASS L3OC pilot + data (1 ms blocks, 12 accumulators) over the
+    exact dual scan ('dual') or kernel K3 ('dual_fused').
+
+    Lock and the PLL ride the pilot; ip2 / qp2 carry the data prompts for
+    overlay sync and demodulation (nav.glonass_l3). Slot PRNs are the
+    satellite numbers 1..31: the pilot code is code(prn), the data code
+    code(prn + 32). The fused engine's tap rows (int8 [R, 6, blkp] per
+    slot) are built when a PRN is written into a slot; new_bank sizes the
+    table from its shape alone.
+    """
+
+    has_data_component = True
+
+    def __init__(self, cfg: ReceiverConfig, fused: bool):
+        super().__init__(cfg)
+        self.name = "dual_fused" if fused else "dual"
+        self.fused = fused
+        self.slot_keys = ("tab",) if fused else ("pilot", "data")
+
+    def new_bank(self, C: int) -> dict:
+        from gnsstpu_torch.ops import nco
+
+        cb = np.full(C, nco.freq_to_step_u32(self.sig.if_freq,
+                                             self.sig.fs), np.uint32)
+        bank = {"carr_base": cb}
+        if self.fused:
+            from gnsstpu_torch.tracking.dual import dual_table_shape
+            bank["tab"] = np.zeros((C,) + dual_table_shape(self.sig),
+                                   np.int8)
+        else:
+            L = self.sig.code_length + 2
+            bank["pilot"] = np.zeros((C, L), np.float32)
+            bank["data"] = np.zeros((C, L), np.float32)
+        return bank
+
+    def write_slot(self, bank: dict, idx: int, prn: int) -> None:
+        from gnsstpu_torch.signals import glonass_l3 as l3
+
+        if self.fused:
+            from gnsstpu_torch.tracking.dual import dual_tap_rows
+            bank["tab"][idx] = dual_tap_rows(self.sig, self.cfg.track,
+                                             [prn])[0]
+            return
+        for key, code_prn in (("pilot", l3.pilot_prn(prn)),
+                              ("data", l3.data_prn(prn))):
+            c = l3.generate_l3_code(code_prn)
+            bank[key][idx] = np.concatenate([c[-1:], c, c[:1]])
+
+    def _state(self, n: int, doppler_hz, device):
+        from gnsstpu_torch.tracking.scan import TrackState
+
+        return TrackState.init(np.zeros(n, np.int64),
+                               np.asarray(doppler_hz, np.float32),
+                               aid_div=self.cfg.track.aid_div,
+                               device=device)
+
+    def init_state(self, C: int, device):
+        return self._state(C, np.zeros(C), device)
+
+    def slot_state(self, doppler_hz: float, device):
+        return self._state(1, [doppler_hz], device)
+
+    def make_step(self, n_blocks: int):
+        from gnsstpu_torch.tracking import dual
+
+        if self.fused:
+            ftr = dual.make_fused_dual_tracker(self.sig, self.cfg.track,
+                                               n_blocks=n_blocks)
+
+            def tracker(win, bank, state):
+                return ftr(win, bank["tab"], bank["carr_base"], state)
+        else:
+            dtr = dual.make_dual_tracker(self.sig, self.cfg.track,
+                                         n_blocks=n_blocks)
+
+            def tracker(win, bank, state):
+                return dtr(win, bank["pilot"], bank["data"],
+                           bank["carr_base"], state)
+
+        def step(win, bank, state):
+            state, out = tracker(win, bank, state)
+            a = out.acc
+            obs = EpochObs(
+                ip=a.ip, qp=a.qp, ie=a.ie, qe=a.qe, il=a.il, ql=a.ql,
+                rem=a.rem_code_phase, blksize=a.blksize,
+                dopp=out.carr_doppler, ip2=a.ip2, qp2=a.qp2)
             return state, obs
 
         return step

@@ -239,8 +239,8 @@ def test_engine_routing():
     assert (eng.period_ms, eng.spc) == (4, SPC)
     assert eng.rem_to_samples == SIG.fs / 1.023e6
     l3 = ReceiverConfig(signal=SignalConfig(signal="glonass_l3oc"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_engine(to_port(l3))
+    eng = make_engine(to_port(l3))
+    assert type(eng).__name__ == "DualEngine" and eng.name == "dual_fused"
 
 
 @pytest.fixture(scope="module")

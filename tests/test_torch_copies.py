@@ -32,7 +32,7 @@ COPIES = (
     "nav/__init__.py", "nav/types.py", "nav/geodesy.py", "nav/orbits.py",
     "nav/lnav.py", "nav/frame.py", "nav/pvt.py", "nav/iono.py",
     "nav/ekf.py", "nav/almanac.py", "nav/visibility.py", "nav/glonass.py",
-    "nav/beidou.py", "nav/galileo.py", "nav/viterbi.py",
+    "nav/beidou.py", "nav/galileo.py", "nav/viterbi.py", "nav/glonass_l3.py",
     "runtime/navigator.py", "runtime/telemetry.py", "runtime/console.py",
 )
 #: Binary data copied byte for byte.

@@ -1,9 +1,10 @@
 """The port never reaches JAX or the JAX package: a fresh interpreter whose
 import system refuses `jax`, `jaxlib` and every `gnsstpu` module imports
-every gnsstpu_torch module and runs two small slices of the live receiver
-on the CPU (port simulator -> packed sm2 source -> ChannelManager ->
-records): GPS L1 C/A with the fused engine (K1's twin) and Galileo E1B
-with the exact scan engine ('gather'). A GPU host need not have JAX
+every gnsstpu_torch module and runs three small slices of the live
+receiver on the CPU (port simulator -> packed sm2 source -> ChannelManager
+-> records): GPS L1 C/A with the fused engine (K1's twin), Galileo E1B
+with the exact scan engine ('gather') and GLONASS L3OC pilot + data with
+the fused engine (K3's twin). A GPU host need not have JAX
 installed, and the port carries its own copies of the reference's host
 modules, so any such import would be a fault.
 
@@ -102,9 +103,40 @@ SCRIPT = textwrap.dedent("""
     assert abs(grecs[-1].doppler_hz[0] - 510.0) < 5.0
     assert len(gmgr.prompt_stream(11)["i_p"]) == 300
 
+    from gnsstpu_torch.signals import glonass_l3
+    lsig = SignalConfig(signal="glonass_l3oc", if_freq=0.0, fs=12.0e6,
+                        code_freq=glonass_l3.CODE_FREQ,
+                        code_length=glonass_l3.CODE_LENGTH)
+    ltruth = dict(doppler_hz=1250.0, code_phase_chips=2345.5, cn0_dbhz=50.0)
+    lsat = [SatParams(prn=14, nav_bits=np.resize(
+                glonass_l3.NH10.astype(np.float32), 300), **ltruth),
+            SatParams(prn=46, carrier_phase=np.pi / 2, nav_bits=np.resize(
+                glonass_l3.BARKER5.astype(np.float32), 300), **ltruth)]
+    lx = IFSimulator(lsig, lsat, noise_sigma=1.0, seed=6,
+                     device="cpu").generate(250)
+    lcfg = ReceiverConfig(
+        signal=lsig,
+        acq=AcqConfig(doppler_band=3000.0, coherent_ms=1, threshold=2.5,
+                      doppler_step=250.0, prn_list=(14,)),
+        track=TrackConfig(dll_bw=1.0, el_spacing=0.3, pll_bw=25.0,
+                          fll_bw=250.0, aid_div=117.5),
+        n_channels=1)
+    lmgr = ChannelManager(PackedArraySource(lx, fmt="sm2"), lcfg,
+                          device="cpu",
+                          telemetry=Telemetry(sink=io.StringIO()),
+                          epoch_ms=100, reacq_period_ms=10 ** 9,
+                          prn_pool=[14], sync_every=2, prefetch=True,
+                          readback="compact", engine="auto")
+    lrecs = lmgr.run(200)
+    assert lmgr.engine == "dual_fused"
+    assert lrecs[-1].prn[0] == 14, lrecs[-1].prn
+    assert abs(lrecs[-1].doppler_hz[0] - 1250.0) < 10.0
+    lh = lmgr.prompt_stream(14)
+    assert len(lh["q_p2"]) == len(lh["i_p"]) == 200
+
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not loaded, loaded
-    print("NOJAX-OK", n_gps, len(grecs))
+    print("NOJAX-OK", n_gps, len(grecs), len(lrecs))
 """)
 
 
@@ -116,7 +148,7 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "NOJAX-OK 8 3" in proc.stdout
+    assert "NOJAX-OK 8 3 2" in proc.stdout
 
 
 @pytest.mark.parametrize("entry", ["acquire", "IFSimulator",
