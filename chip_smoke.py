@@ -35,19 +35,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
      blocks) and the time of one on-chunk acquisition search;
   5. the GPS main path (warm-up run, then a measured run) with its
      end-to-end checks and K1's launch count;
-  6. K2's build record (ptxas registers and spill);
+  6. K2's build record: its cluster launch at C=12 (N CTAs per channel,
+     S samples per CTA, threads per CTA), registers, spill bytes, static
+     and dynamic shared memory, and cudaOccupancyMaxActiveClusters;
   7. K2 on the card against its plain twin (C=12 x 125 blocks, the main
-     path's launch, and C=3 x 6 blocks) on a Galileo signal: blksize and
-     sample_pos exact, the other lanes within the tolerances of K2_TOL;
+     path's launch, C=3 x 6 blocks, and C=48 x 6 blocks, where a cluster
+     has 2 CTAs and each thread takes several 16-sample steps) on a
+     Galileo signal: blksize and sample_pos exact, the other lanes within
+     the tolerances of K2_TOL, and two launches on the same inputs
+     bit-identical;
   8. K2 time against the twin (CUDA events, C=12 x 125 and x 250 blocks);
   9. the Galileo main path with its end-to-end checks and K2's launch
      count;
- 10. K3's build record (ptxas registers and spill) and its tap table's
-     size at C=12, int8 six planes against the TPU layout, from the shapes;
+ 10. K3's build record, as K2's, and its tap table's size at C=12, int8
+     six planes against the TPU layout, from the shapes;
  11. K3 on the card against its plain twin (C=12 x 500 blocks at 24 Msps,
-     the main path's launch, and C=3 x 6 blocks) on an L3OC signal:
-     blksize and sample_pos exact, the other lanes within K3_TOL;
- 12. K3 time against the twin (CUDA events, C=12 x 500 and x 1000);
+     the main path's launch, C=3 x 6 blocks, and C=48 x 8 blocks, 2 CTAs
+     per cluster and several steps per thread) on an L3OC signal: blksize
+     and sample_pos exact, the other lanes within K3_TOL, and two launches
+     on the same inputs bit-identical;
+ 12. K3 time against the twin (CUDA events, C=12 x 500 and x 1000), the
+     kernel alone at C=48 x 500 (2 CTAs per channel), and its per-block
+     floor (C=12 x 500 blocks of 64 samples);
  13. the GLONASS L3OC main path with its end-to-end checks (every sky
      satellite tracked, Doppler and C/N0, overlay sync, the data bits
      bit-exact, K3 launched and K1 / K2 not) and K3's share of the wall;
@@ -56,15 +65,17 @@ then the kernel record, the nvidia-smi line and the result line.
 Each kernel's bound is the larger of its bytes over 3.35 TB/s (the chunk,
 the tap rows this run's data selects, state and outputs, each once) and
 its f32 operations over 67 TFLOP/s (per sample and channel: 6 for the LO
-products, 6 for the wipeoff, 2 per accumulator, and K2's 5 tap products:
-24 for K1, 37 for K2, 36 for K3's twelve accumulators; the per-block sincos
-and loop filters are left out, under 1%), for the samples this run's
-blocks cover. K3's tap rows are int8, one byte per tap.
+products, 6 for the wipeoff and, every tap being +-1, one signed add per
+accumulator, K2's sub x code tap products being sign flips: 18 for K1's
+six accumulators, 22 for K2's ten, 24 for K3's twelve; the per-block
+sincos and loop filters are left out, under 1%), for the samples this
+run's blocks cover. K2's and K3's tap rows are int8, one byte per tap.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -138,6 +149,35 @@ def ptxas(built) -> str:
     lines = [ln.strip() for ln in built.log.splitlines()
              if "registers" in ln or "spill" in ln]
     return " / ".join(lines) if lines else "ptxas: no report (cached build)"
+
+
+def spill_bytes(built):
+    """Spill stores + loads ptxas reported for a build (None if no
+    report)."""
+    found = re.findall(r"(\d+) bytes spill (?:stores|loads)", built.log)
+    return sum(map(int, found)) if found else None
+
+
+def cluster_line(kernel: str, C: int, blkp: int, built, device) -> dict:
+    """A cluster kernel's launch at C channels and what it uses; raises
+    unless each channel gets N > 1 CTAs at C <= 12."""
+    info = tk.cluster_info(kernel, C, blkp, device)
+    info["spill_bytes"] = spill_bytes(built)
+    info["all_clusters_resident"] = info["max_active_clusters"] >= C
+    if C <= 12 and info["N"] <= 1:
+        raise AssertionError(f"{kernel}: one CTA per channel at C={C}")
+    return info
+
+
+def repeat_identical(tag: str, inputs, kernel) -> None:
+    """Two launches of a kernel on the same inputs give bit-identical
+    outputs (its reduction has no atomics); raises otherwise."""
+    args, kw = inputs
+    first, second = kernel(*args, **kw), kernel(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: two launches differ")
 
 
 def smi_line() -> str:
@@ -252,12 +292,13 @@ def k1_compare(C: int, n_blocks: int, device) -> tuple:
     samples = float(ro[..., tk.O_BLKSIZE].sum())
     n_bytes = (chunk.numel() * 4 + n_rows * kw["blkp"] * 4
                + 2 * finit.numel() * 4 + ro.size * 4)
-    return dev, bound(n_bytes, 24.0 * samples)
+    return dev, bound(n_bytes, 18.0 * samples)
 
 
 def kernel_times(inputs, kernel, twin, reps: int = 20) -> tuple:
     """(kernel ms, plain twin ms) per call on the same inputs (args, kw),
-    timed with CUDA events after a warm-up call of each."""
+    timed with CUDA events after a warm-up call of each; no twin time
+    when twin is None."""
     args, kw = inputs
 
     def timed(fn, n):
@@ -271,7 +312,7 @@ def kernel_times(inputs, kernel, twin, reps: int = 20) -> tuple:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / n
 
-    return timed(kernel, reps), timed(twin, 1)
+    return timed(kernel, reps), (timed(twin, 1) if twin else None)
 
 
 def k1_times(C: int, n_blocks: int, device) -> tuple:
@@ -401,10 +442,11 @@ def gps_main_path(device) -> dict:
 
 
 def k2_inputs(C: int, n_blocks: int, device):
-    """K2's tensor and static arguments: C Galileo E1B satellites at
-    spread Dopplers and code phases from the port's simulator, the
-    trackers started 7 Hz off each truth."""
-    prns = [11, 4, 19, 27, 2, 8, 14, 30, 23, 5, 33, 36][:C]
+    """K2's tensor and static arguments: up to 12 Galileo E1B satellites
+    at spread Dopplers and code phases from the port's simulator, the
+    trackers started 7 Hz off each truth; channel i tracks satellite
+    i mod 12."""
+    prns = [11, 4, 19, 27, 2, 8, 14, 30, 23, 5, 33, 36][:min(C, 12)]
     sats = [SatParams(prn=p, doppler_hz=350.0 * i - 1900.0,
                       code_phase_chips=611.0 * i + 57.25, cn0_dbhz=48.0)
             for i, p in enumerate(prns)]
@@ -412,13 +454,15 @@ def k2_inputs(C: int, n_blocks: int, device):
                         device=device).generate_tensor(4 * n_blocks + 12)
     spc = GSIG.samples_per_code
     spchip = GSIG.fs / GSIG.code_freq
+    ch = [sats[i % len(sats)] for i in range(C)]
     state0 = tboc.BocTrackState.init(
         np.array([int(round(s.code_phase_chips * spchip)) % spc
-                  for s in sats]),
-        np.array([s.doppler_hz + 7.0 for s in sats], np.float32),
+                  for s in ch]),
+        np.array([s.doppler_hz + 7.0 for s in ch], np.float32),
         device=device)
     ctab = torch.as_tensor(tboc.code_tap_rows(GSIG, GTRK, prns),
-                           device=device)
+                           device=device)[torch.as_tensor(
+                               np.arange(C) % len(prns), device=device)]
     stab = torch.as_tensor(tboc.sub_tap_rows(GSIG, GTRK), device=device)
     cb = u32_tensor(np.full(C, nco.freq_to_step_u32(GSIG.if_freq, GSIG.fs)),
                     device)
@@ -427,9 +471,11 @@ def k2_inputs(C: int, n_blocks: int, device):
 
 
 def k2_compare(C: int, n_blocks: int, device) -> tuple:
-    """K2's wrapper against its plain twin on the card under K2_TOL.
-    Returns (deviations, K2's bound at this shape)."""
+    """K2's wrapper against its plain twin on the card under K2_TOL, and
+    against itself on a second launch. Returns (deviations, K2's bound at
+    this shape)."""
     args, kw = inputs = k2_inputs(C, n_blocks, device)
+    repeat_identical(f"K2 C={C}", inputs, tk.track_chunk_boc_fused)
     blkp = kw["blkp"]
     dev, ro = twin_parity(
         f"K2 C={C}", inputs, tk.track_chunk_boc_fused,
@@ -454,9 +500,9 @@ def k2_compare(C: int, n_blocks: int, device) -> tuple:
     n_rows = (sum(len(np.unique(code_rows[c])) for c in range(C))
               + len(np.unique(sub_rows)))
     samples = float(ro[..., tk.OB_BLKSIZE].sum())
-    n_bytes = (chunk.numel() * 4 + n_rows * 3 * blkp * 4
+    n_bytes = (chunk.numel() * 4 + n_rows * 3 * blkp
                + 2 * finit.numel() * 4 + ro.size * 4)
-    return dev, bound(n_bytes, 37.0 * samples)
+    return dev, bound(n_bytes, 22.0 * samples)
 
 
 def k2_times(C: int, n_blocks: int, device) -> tuple:
@@ -556,23 +602,26 @@ def l3_sky(prns, dopplers, rates, code_phases, n_ms: int, seed: int,
 
 
 def k3_inputs(C: int, n_blocks: int, device):
-    """K3's tensor and static arguments: C L3OC satellites at spread
-    Dopplers and code phases from the port's simulator at 24 Msps, the
-    trackers started 7 Hz off each truth."""
-    prns = [3, 7, 11, 14, 18, 22, 26, 30, 1, 5, 9, 27][:C]
-    dopp = [600.0 * i - 3300.0 for i in range(C)]
-    cps = [853.0 * i + 41.25 for i in range(C)]
-    sats, _ = l3_sky(prns, dopp, [0.0] * C, cps, n_blocks + 3, seed=9)
+    """K3's tensor and static arguments: up to 12 L3OC satellites at
+    spread Dopplers and code phases from the port's simulator at 24 Msps,
+    the trackers started 7 Hz off each truth; channel i tracks satellite
+    i mod 12."""
+    n_sv = min(C, 12)
+    prns = [3, 7, 11, 14, 18, 22, 26, 30, 1, 5, 9, 27][:n_sv]
+    dopp = [600.0 * i - 3300.0 for i in range(n_sv)]
+    cps = [853.0 * i + 41.25 for i in range(n_sv)]
+    sats, _ = l3_sky(prns, dopp, [0.0] * n_sv, cps, n_blocks + 3, seed=9)
     chunk = IFSimulator(LSIG, sats, noise_sigma=1.0, seed=9,
                         device=device).generate_tensor(n_blocks + 3)
     spc = LSIG.samples_per_code
     spchip = LSIG.fs / LSIG.code_freq
+    ch = np.arange(C) % n_sv
     state0 = tscan.TrackState.init(
-        np.array([int(round(cp * spchip)) % spc for cp in cps]),
-        np.array([fd + 7.0 for fd in dopp], np.float32),
+        np.array([int(round(cps[i] * spchip)) % spc for i in ch]),
+        np.array([dopp[i] + 7.0 for i in ch], np.float32),
         aid_div=LTRK.aid_div, device=device)
     tab = torch.as_tensor(tdual.dual_tap_rows(LSIG, LTRK, prns),
-                          device=device)
+                          device=device)[torch.as_tensor(ch, device=device)]
     cb = u32_tensor(np.full(C, nco.freq_to_step_u32(LSIG.if_freq, LSIG.fs)),
                     device)
     args = tdual.dual_kernel_inputs(chunk, tab, cb, state0, LTRK)
@@ -580,9 +629,11 @@ def k3_inputs(C: int, n_blocks: int, device):
 
 
 def k3_compare(C: int, n_blocks: int, device) -> tuple:
-    """K3's wrapper against its plain twin on the card under K3_TOL.
-    Returns (deviations, K3's bound at this shape)."""
+    """K3's wrapper against its plain twin on the card under K3_TOL, and
+    against itself on a second launch. Returns (deviations, K3's bound at
+    this shape)."""
     args, kw = inputs = k3_inputs(C, n_blocks, device)
+    repeat_identical(f"K3 C={C}", inputs, tk.track_chunk_dual_fused)
     blkp = kw["blkp"]
     dev, ro = twin_parity(
         f"K3 C={C}", inputs, tk.track_chunk_dual_fused,
@@ -604,13 +655,30 @@ def k3_compare(C: int, n_blocks: int, device) -> tuple:
     samples = float(ro[..., tk.OD_BLKSIZE].sum())
     n_bytes = (chunk.numel() * 4 + n_rows * 6 * blkp
                + 2 * finit.numel() * 4 + ro.size * 4)
-    return dev, bound(n_bytes, 36.0 * samples)
+    return dev, bound(n_bytes, 24.0 * samples)
 
 
-def k3_times(C: int, n_blocks: int, device) -> tuple:
+def k3_floor_ms(C: int, n_blocks: int, device) -> float:
+    """K3's time per launch on blocks of 64 samples (zero signal, one tap
+    row): what a block costs beyond its samples, that is the cluster
+    barriers, the reduction, the leader's loop update, the LO angles and
+    one load round trip."""
+    blkp = 64
+    i64 = torch.zeros((C,), dtype=torch.int64, device=device)
+    args = (torch.zeros((n_blocks * blkp + 256, 2), device=device),
+            torch.ones((C, 1, 6, tk.plane_stride(blkp)), dtype=torch.int8,
+                       device=device),
+            torch.zeros((C,), dtype=torch.int32, device=device),
+            torch.zeros((C, tk.NF), device=device), i64, i64.clone())
+    kw = dict(tdual.dual_kernel_kwargs(LSIG, LTRK, n_blocks=n_blocks),
+              blkp=blkp)
+    return kernel_times((args, kw), tk.track_chunk_dual_fused, None)[0]
+
+
+def k3_times(C: int, n_blocks: int, device, twin: bool = True) -> tuple:
     return kernel_times(k3_inputs(C, n_blocks, device),
                         tk.track_chunk_dual_fused,
-                        tk.track_chunk_dual_fused_ref)
+                        tk.track_chunk_dual_fused_ref if twin else None)
 
 
 def l3_bits_recovered(h: dict, bits: np.ndarray) -> tuple:
@@ -741,6 +809,7 @@ def main() -> int:
                            "torch.cuda.is_available() is False")
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     smi = smi_line()
     print(f"[1 device] {name} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -785,23 +854,30 @@ def main() -> int:
     if failed:
         raise AssertionError(f"main path checks failed: {failed}")
 
-    # 6. K2 build record.
+    # 6. K2 build record: its cluster launch and what the kernel uses.
     k2b = built["track_chunk_boc_fused"]
     rows_c = tboc.code_tap_rows(GSIG, GTRK, [1]).shape[1]
     rows_s = tboc.sub_tap_rows(GSIG, GTRK).shape[0]
-    bp = -(-(GSIG.samples_per_code + 2) // 128) * 128
-    tab_mb = 4e-6 * 3 * (GSIG.samples_per_code + 2) * (12 * rows_c + rows_s)
-    tpu_mb = 4e-6 * 8 * bp * (12 * rows_c + rows_s)
+    blkp2 = GSIG.samples_per_code + 2
+    bp = tk.plane_stride(blkp2)
+    rows2 = 12 * rows_c + rows_s
+    k2_cl = cluster_line("track_chunk_boc_fused", 12, blkp2, k2b, dev)
     print(f"[6 K2 build] {k2b.path.name} built in {k2b.build_s:.2f} s "
-          f"(in parallel with K1); {ptxas(k2b)}; tap tables at C=12: "
-          f"{tab_mb:.1f} MB (E/P/L planes) against {tpu_mb:.1f} MB in the "
-          f"TPU layout", flush=True)
+          f"(in parallel with K1); {ptxas(k2b)}; cluster launch at C=12: "
+          f"{json.dumps(k2_cl)}; tap tables at C=12: {1e-6 * 3 * bp * rows2:.1f}"
+          f" MB (int8 E/P/L planes, {bp} lanes) against "
+          f"{4e-6 * 3 * blkp2 * rows2:.1f} MB as f32 and "
+          f"{4e-6 * 8 * bp * rows2:.1f} MB in the TPU layout", flush=True)
 
     # 7. K2 against its plain twin on the card.
     g125, (k2_bound_ms, k2_bound_by) = k2_compare(12, 125, dev)
     g6, _ = k2_compare(3, 6, dev)
+    g48, _ = k2_compare(48, 6, dev)
     print(f"[7 K2 parity] tolerances {json.dumps(K2_TOL)} | C=12x125: "
-          f"{json.dumps(g125)} | C=3x6: {json.dumps(g6)}", flush=True)
+          f"{json.dumps(g125)} | C=3x6: {json.dumps(g6)} | C=48x6 "
+          f"(N, S = {tk.cluster_split(48, blkp2, n_sms)}): "
+          f"{json.dumps(g48)} | two launches bit-identical at all three "
+          f"shapes", flush=True)
 
     # 8. K2 time against the twin.
     k2_ms, k2p_ms = k2_times(12, 125, dev)
@@ -834,33 +910,44 @@ def main() -> int:
         raise AssertionError(f"galileo main path checks failed: {failed} "
                              f"(modules: {refused[:5]})")
 
-    # 10. K3 build record and tap-table sizes at C=12, from the shapes.
+    # 10. K3 build record, its cluster launch and tap-table sizes at C=12.
     k3b = built["track_chunk_dual_fused"]
-    R, _, blkp3 = tdual.dual_table_shape(LSIG)
-    bp3 = -(-blkp3 // 128) * 128
+    R, _, bp3 = tdual.dual_table_shape(LSIG)
+    blkp3 = LSIG.samples_per_code + 2
+    k3_cl = cluster_line("track_chunk_dual_fused", 12, blkp3, k3b, dev)
     print(f"[10 K3 build] {k3b.path.name} built in {k3b.build_s:.2f} s "
-          f"(in parallel with K1 and K2); {ptxas(k3b)}; tap table at C=12: "
-          f"{12 * R * 6 * blkp3 * 1e-6:.1f} MB (int8, 6 planes) against "
-          f"{12 * R * 8 * bp3 * 4e-6:.1f} MB in the TPU layout (f32, "
-          f"8 planes, lanes padded; {12 * R * 6 * blkp3 * 4e-6:.1f} MB as "
-          f"f32 6 planes)", flush=True)
+          f"(in parallel with K1 and K2); {ptxas(k3b)}; cluster launch at "
+          f"C=12: {json.dumps(k3_cl)}; tap table at C=12: "
+          f"{12 * R * 6 * bp3 * 1e-6:.1f} MB (int8, 6 planes, {bp3} lanes)"
+          f" against {12 * R * 8 * bp3 * 4e-6:.1f} MB in the TPU layout "
+          f"(f32, 8 planes, lanes padded)", flush=True)
 
     # 11. K3 against its plain twin on the card.
     l500, (k3_bound_ms, k3_bound_by) = k3_compare(12, 500, dev)
     l6, _ = k3_compare(3, 6, dev)
+    l48, _ = k3_compare(48, 8, dev)
     print(f"[11 K3 parity] tolerances {json.dumps(K3_TOL)} | C=12x500: "
-          f"{json.dumps(l500)} | C=3x6: {json.dumps(l6)} | bound at "
+          f"{json.dumps(l500)} | C=3x6: {json.dumps(l6)} | C=48x8 "
+          f"(N, S = {tk.cluster_split(48, blkp3, n_sms)}): "
+          f"{json.dumps(l48)} | two launches bit-identical at all three "
+          f"shapes | bound at "
           f"C=12x500 {k3_bound_ms:.5f} ms ({k3_bound_by})", flush=True)
 
     # 12. K3 time against the twin.
     k3_ms, k3p_ms = k3_times(12, 500, dev)
     k3l_ms, k3lp_ms = k3_times(12, 1000, dev)
+    k3w_ms, _ = k3_times(48, 500, dev, twin=False)
+    k3w_cl = cluster_line("track_chunk_dual_fused", 48, blkp3, k3b, dev)
+    k3f_ms = k3_floor_ms(12, 500, dev)
     print(f"[12 K3 time] C=12x500 blocks (0.500 s of signal at 24 Msps): "
           f"kernel {k3_ms:.4f} ms (real-time factor {500.0 / k3_ms:.1f}, "
           f"{1e3 * k3_ms / 500:.2f} us per block), plain twin "
           f"{k3p_ms:.2f} ms; C=12x1000 (1.000 s): kernel {k3l_ms:.4f} ms "
           f"(real-time factor {1000.0 / k3l_ms:.1f}), twin {k3lp_ms:.2f} "
-          f"ms; bound at C=12x500 {k3_bound_ms:.5f} ms ({k3_bound_by})",
+          f"ms; C=48x500: kernel {k3w_ms:.4f} ms ({1e3 * k3w_ms / 500:.2f} "
+          f"us per block; launch {json.dumps(k3w_cl)}); per-block floor "
+          f"(C=12x500 blocks of 64 samples) {1e3 * k3f_ms / 500:.3f} us; "
+          f"bound at C=12x500 {k3_bound_ms:.5f} ms ({k3_bound_by})",
           flush=True)
 
     # 13. GLONASS L3OC main path.

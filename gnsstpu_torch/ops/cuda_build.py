@@ -4,8 +4,8 @@ Each kernel source in gnsstpu_torch/csrc/ has a plain C interface and is
 compiled with nvcc for Hopper (sm_90a) into `build/kernels/` at the root
 of the checkout, at first use, then loaded with ctypes; load_many()
 starts one nvcc per source, all together. The library name
-carries a hash of the source, so an edited kernel never loads a stale
-build. Nothing here runs at import time: this module is imported on
+carries a hash of the source and of the shared headers (csrc/*.cuh), so
+an edited kernel never loads a stale build. Nothing here runs at import time: this module is imported on
 machines without nvcc or a GPU.
 
 Flags: -O3, no --use_fast_math (it changes the division and sinf/cosf the
@@ -60,7 +60,8 @@ def nvcc_path() -> str:
 
 def _target(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"

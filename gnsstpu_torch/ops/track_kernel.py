@@ -24,17 +24,21 @@ Outputs:
   cphase i64 [C] (u32 values).
 
 K2 takes the same chunk / pos0 / finit (with the _F_*_SUB lanes) / cinit /
-carrbase and two tap tables, E/P/L planes of the reference's
-[.., 8, BP] tables without the TPU's padding planes and lanes:
-  ctab      f32 [C, Rc, 3, blkp]  per-channel primary-code tap rows
-  stab      f32 [Rs, 3, blkp]     shared meandr (subcarrier) tap rows
+carrbase and two tap tables, the E/P/L planes of the reference's
+[.., 8, BP] tables as int8 (every tap is +-1), each plane padded with
+zeros to bp = plane_stride(blkp) lanes (a multiple of 128):
+  ctab      i8  [C, Rc, 3, bp]   per-channel primary-code tap rows
+  stab      i8  [Rs, 3, bp]      shared meandr (subcarrier) tap rows
 and returns out f32 [n_blocks, C, 24] (OB_* lanes), ffin, pos, cphase.
 
 K3 takes the same chunk / pos0 / finit / cinit / carrbase and one tap
 table, the six used planes of the reference's f32 [.., 8, BP] table as
-int8 (every tap is +-1):
-  tab       i8  [C, R, 6, blkp]   pilot E/P/L, data E/P/L tap rows
+int8, padded as K2's:
+  tab       i8  [C, R, 6, bp]    pilot E/P/L, data E/P/L tap rows
 and returns out f32 [n_blocks, C, 24] (OD_* lanes), ffin, pos, cphase.
+
+K2 and K3 run each channel on a thread-block cluster of N CTAs, each
+owning S samples of a block (cluster_split; csrc/cluster_track.cuh).
 """
 
 from __future__ import annotations
@@ -91,6 +95,31 @@ LAUNCHES = {"track_chunk_fused": 0, "track_chunk_boc_fused": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+#: Most CTAs in one of K2's / K3's clusters (the portable cluster size).
+MAX_CLUSTER = 8
+
+
+def plane_stride(blkp: int) -> int:
+    """Lanes of one K2 / K3 tap plane: blkp rounded up to 128, so every
+    16-tap vector of a plane is 16-byte aligned."""
+    return -(-blkp // 128) * 128
+
+
+def cluster_split(C: int, blkp: int, n_sms: int) -> tuple:
+    """(N, S) for K2 / K3: N CTAs per channel's cluster, as many as the
+    card's n_sms SMs give each of the C channels, at most MAX_CLUSTER;
+    CTA i owns the block-relative samples [i S, (i + 1) S) of [0, blk),
+    S = ceil(blkp / N) rounded up to 16 (one 16-sample vector per thread
+    and step)."""
+    N = min(max(n_sms // max(C, 1), 1), MAX_CLUSTER)
+    S = -(-(-(-blkp // N)) // 16) * 16
+    return N, S
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _consts(*, code_length, phases_per_chip, spacing, span_chips,
@@ -384,8 +413,11 @@ def track_chunk_boc_fused_ref(chunk, ctab, stab, pos0, finit, cinit,
         lo_c, lo_s = _factored_lo(ph, cstep, blkp, k["ang_scale"])
         bb_i = (xi * lo_c + xq * lo_s) * mask
         bb_q = (xq * lo_c - xi * lo_s) * mask
-        code_e, code_p, code_l = ctab[ch, row_c].unbind(1)  # [C, blkp]
-        sub_e, sub_p, sub_l = stab[row_s].unbind(1)
+        # Taps widened to f32 (int8 tables; f32 ones pass through).
+        code_e, code_p, code_l = ctab[ch, row_c, :, :blkp].to(
+            torch.float32).unbind(1)                       # [C, blkp]
+        sub_e, sub_p, sub_l = stab[row_s, :, :blkp].to(
+            torch.float32).unbind(1)
         accs = []
         for t in (sub_e * code_p, sub_p * code_e, sub_p * code_p,
                   sub_p * code_l, sub_l * code_p):
@@ -448,13 +480,46 @@ def _boc_lib():
     fn = built.lib.track_chunk_boc_fused_cuda
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 5
+        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 7
                        + [p, i, p])
         fn.restype = ctypes.c_int
-        err = built.lib.track_boc_fused_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
+        _bind_info_and_errors(built.lib, "track_boc_fused")
     return built
+
+
+def _bind_info_and_errors(lib, stem: str) -> None:
+    info = getattr(lib, f"{stem}_cluster_info")
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info.restype = ctypes.c_int
+    err = getattr(lib, f"{stem}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+
+
+def cluster_info(kernel: str, C: int, blkp: int, device) -> dict:
+    """K2's or K3's launch at C channels on this card (cluster_split) and
+    what its compiled kernel uses: registers, static / dynamic shared and
+    local bytes per CTA, and cudaOccupancyMaxActiveClusters (how many of
+    its clusters the card holds at once)."""
+    load, stem = {"track_chunk_boc_fused": (_boc_lib, "track_boc_fused"),
+                  "track_chunk_dual_fused": (_dual_lib, "track_dual_fused")
+                  }[kernel]
+    lib = load().lib
+    N, S = cluster_split(C, blkp, _sm_count(device))
+    info = (ctypes.c_int * 6)()
+    rc = getattr(lib, f"{stem}_cluster_info")(C, N, ctypes.addressof(info))
+    if rc != 0:
+        msg = getattr(lib, f"{stem}_error_string")(rc).decode()
+        raise RuntimeError(f"{kernel} cluster info failed: {msg} ({rc})")
+    return dict(C=C, N=N, S=S, threads=info[3], registers=info[0],
+                static_smem=info[1], dynamic_smem=info[4],
+                local_bytes=info[2], max_active_clusters=info[5])
+
+
+def _check_aligned16(name, t):
+    """K2 and K3 read taps as 16-byte vectors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def build_all() -> dict:
@@ -492,9 +557,12 @@ def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
     if dev.type != "cuda":
         raise ValueError(f"track_chunk_boc_fused: unsupported device {dev}")
     C, Rc, Rs = ctab.shape[0], ctab.shape[1], stab.shape[0]
+    bp = plane_stride(blkp)
     _check("chunk", chunk, torch.float32, (chunk.shape[0], 2), dev)
-    _check("ctab", ctab, torch.float32, (C, Rc, 3, blkp), dev)
-    _check("stab", stab, torch.float32, (Rs, 3, blkp), dev)
+    _check("ctab", ctab, torch.int8, (C, Rc, 3, bp), dev)
+    _check("stab", stab, torch.int8, (Rs, 3, bp), dev)
+    _check_aligned16("ctab", ctab)
+    _check_aligned16("stab", stab)
     _check("pos0", pos0, torch.int32, (C,), dev)
     _check("finit", finit, torch.float32, (C, NF), dev)
     _check("cinit", cinit, torch.int64, (C,), dev)
@@ -512,13 +580,14 @@ def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
                     base_sub_step=base_sub_step, fs=fs, coefs=coefs)
     consts = (ctypes.c_float * len(BOC_CONSTS))(
         *(k[name] for name in BOC_CONSTS))
+    N, S = cluster_split(C, blkp, _sm_count(dev))
     built = _boc_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = built.lib.track_chunk_boc_fused_cuda(
         chunk.data_ptr(), chunk.shape[0], ctab.data_ptr(), stab.data_ptr(),
         pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
         carrbase.data_ptr(), out.data_ptr(), ffin.data_ptr(),
-        pos.data_ptr(), cph.data_ptr(), C, n_blocks, Rc, Rs, blkp,
+        pos.data_ptr(), cph.data_ptr(), C, n_blocks, Rc, Rs, blkp, N, S,
         ctypes.cast(consts, ctypes.c_void_p), len(BOC_CONSTS), stream)
     if rc != 0:
         msg = built.lib.track_boc_fused_error_string(rc).decode()
@@ -592,7 +661,7 @@ def track_chunk_dual_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
         lo_c, lo_s = _factored_lo(ph, cstep, blkp, k["ang_scale"])
         bb_i = (xi * lo_c + xq * lo_s) * mask
         bb_q = (xq * lo_c - xi * lo_s) * mask
-        taps = tab[ch, row].to(torch.float32)              # [C, 6, blkp]
+        taps = tab[ch, row, :, :blkp].to(torch.float32)    # [C, 6, blkp]
         accs = []
         for j in range(6):
             accs += [(taps[:, j] * bb_i).sum(1), (taps[:, j] * bb_q).sum(1)]
@@ -644,12 +713,10 @@ def _dual_lib():
     fn = built.lib.track_chunk_dual_fused_cuda
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 9 + [i] * 4
+        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 9 + [i] * 6
                        + [p, i, p])
         fn.restype = ctypes.c_int
-        err = built.lib.track_dual_fused_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
+        _bind_info_and_errors(built.lib, "track_dual_fused")
     return built
 
 
@@ -670,8 +737,9 @@ def track_chunk_dual_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"track_chunk_dual_fused: unsupported device {dev}")
     C, R = tab.shape[0], tab.shape[1]
+    bp = plane_stride(blkp)
     _check("chunk", chunk, torch.float32, (chunk.shape[0], 2), dev)
-    _check("tab", tab, torch.int8, (C, R, 6, blkp), dev)
+    _check("tab", tab, torch.int8, (C, R, 6, bp), dev)
     _check("pos0", pos0, torch.int32, (C,), dev)
     _check("finit", finit, torch.float32, (C, NF), dev)
     _check("cinit", cinit, torch.int64, (C,), dev)
@@ -691,13 +759,15 @@ def track_chunk_dual_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
                      base_code_step=base_code_step, fs=fs, coefs=coefs)
     consts = (ctypes.c_float * len(DUAL_CONSTS))(
         *(k[name] for name in DUAL_CONSTS))
+    _check_aligned16("tab", tab)
+    N, S = cluster_split(C, blkp, _sm_count(dev))
     built = _dual_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = built.lib.track_chunk_dual_fused_cuda(
         chunk.data_ptr(), chunk.shape[0], tab.data_ptr(), pos0.data_ptr(),
         finit.data_ptr(), cinit.data_ptr(), carrbase.data_ptr(),
         out.data_ptr(), ffin.data_ptr(), pos.data_ptr(), cph.data_ptr(),
-        C, n_blocks, R, blkp, ctypes.cast(consts, ctypes.c_void_p),
+        C, n_blocks, R, blkp, N, S, ctypes.cast(consts, ctypes.c_void_p),
         len(DUAL_CONSTS), stream)
     if rc != 0:
         msg = built.lib.track_dual_fused_error_string(rc).decode()

@@ -13,8 +13,9 @@ SLL on normalized |E_P| - |L_P| with the meandr clock aided by
 carrier/770. The pseudorange observable is the code estimator.
 
 The fused engine's tap tables keep the reference's values but only its
-three E/P/L planes, without the TPU's padding planes and lanes:
-ctab [C, Rc, 3, blkp] per channel, stab [Rs, 3, blkp] shared.
+three E/P/L planes, as int8 (every tap is +-1), each plane padded with
+zeros from blkp to bp = blkp rounded up to 128 lanes: ctab [C, Rc, 3, bp]
+per channel, stab [Rs, 3, bp] shared.
 """
 
 from __future__ import annotations
@@ -195,25 +196,26 @@ def _boc_spans(sig: SignalConfig, ph: int):
 
 def _tap_table(codes, length: int, fs: float, freq: float, blkp: int,
                spacing: float, ph: int, span: float) -> np.ndarray:
-    """Tap-row table [N, R, 3, blkp] f32 with E/P/L planes at (-spacing,
-    0, +spacing) units of the given clock: the reference's values, each
-    tap computed by the reference's expression."""
+    """Tap-row table [N, R, 3, bp] int8 with E/P/L planes at (-spacing,
+    0, +spacing) units of the given clock: the reference's values (the
+    +-1 int8 codes), each tap computed by the reference's expression, on
+    lanes [0, blkp); lanes [blkp, bp) hold 0."""
     step = float(freq) / float(fs)
     rows = int(round(2 * span * ph))
     k = np.arange(blkp, dtype=np.float64)
     p = np.arange(rows, dtype=np.float64)
-    out = np.zeros((len(codes), rows, 3, blkp), np.float32)
+    out = np.zeros((len(codes), rows, 3, tk.plane_stride(blkp)), np.int8)
     for j, off in enumerate((-spacing, 0.0, spacing)):
         idx = np.floor(-span + off + p[:, None] / ph
                        + k[None, :] * step).astype(np.int64) % length
         for i, code in enumerate(codes):
-            out[i, :, j, :] = code[idx]
+            out[i, :, j, :blkp] = code[idx]
     return out
 
 
 def code_tap_rows(sig: SignalConfig, trk: TrackConfig, prns,
                   ph: int = PHASES_PER_CHIP) -> np.ndarray:
-    """Primary-code tap rows [C, Rc, 3, blkp] of the given PRNs."""
+    """Primary-code tap rows int8 [C, Rc, 3, bp] of the given PRNs."""
     from gnsstpu_torch.signals import galileo_e1
 
     return _tap_table(
@@ -224,7 +226,8 @@ def code_tap_rows(sig: SignalConfig, trk: TrackConfig, prns,
 
 def sub_tap_rows(sig: SignalConfig, trk: TrackConfig,
                  ph: int = PHASES_PER_CHIP) -> np.ndarray:
-    """Meandr (subcarrier) tap rows [Rs, 3, blkp], shared by all PRNs."""
+    """Meandr (subcarrier) tap rows int8 [Rs, 3, bp], shared by all
+    PRNs."""
     from gnsstpu_torch.signals import galileo_e1
 
     return _tap_table(
@@ -235,8 +238,8 @@ def sub_tap_rows(sig: SignalConfig, trk: TrackConfig,
 
 def boc_fused_tables(sig: SignalConfig, trk: TrackConfig, prns,
                      ph: int = PHASES_PER_CHIP):
-    """(code_tab [C, Rc, 3, blkp], sub_tab [Rs, 3, blkp], span_c, span_s)
-    for kernel K2 (host numpy). sig follows the galileo_e1b registry
+    """(code_tab [C, Rc, 3, bp], sub_tab [Rs, 3, bp], span_c, span_s)
+    for kernel K2 (host numpy, int8). sig follows the galileo_e1b registry
     convention (code_freq / code_length at the meandr rate)."""
     span_c, span_s = _boc_spans(sig, ph)
     return (code_tap_rows(sig, trk, prns, ph), sub_tap_rows(sig, trk, ph),

@@ -17,7 +17,9 @@ are the demodulation observable (nav.glonass_l3).
 
 The fused engine's tap table keeps the reference's values but only its
 six planes (pilot E/P/L, data E/P/L), as int8 (the taps are exactly +-1)
-without the TPU's two padding planes and padded lanes: tab [C, R, 6, blkp].
+without the TPU's two padding planes: tab [C, R, 6, bp], each plane padded
+with zeros from blkp to bp = blkp rounded up to 128 lanes, as the TPU pads
+its lanes.
 track_dual, the offline chunked tracker, is not ported (ROADMAP queue 1,
 item 3).
 """
@@ -138,27 +140,28 @@ def dual_fused_span(sig: SignalConfig,
 
 def dual_table_shape(sig: SignalConfig,
                      phases_per_chip: int = PHASES_PER_CHIP) -> tuple:
-    """(R, 6, blkp): one channel's tap-row table shape, without building
-    it."""
+    """(R, 6, bp): one channel's tap-row table shape, without building
+    it (bp: blkp = samples_per_code + 2 rounded up to 128)."""
     span = dual_fused_span(sig, phases_per_chip)
     return (int(round(2 * span * phases_per_chip)), 6,
-            sig.samples_per_code + 2)
+            tk.plane_stride(sig.samples_per_code + 2))
 
 
 def dual_tap_rows(sig: SignalConfig, trk: TrackConfig, prns,
                   phases_per_chip: int = PHASES_PER_CHIP) -> np.ndarray:
-    """Tap-row table for kernel K3, int8 [C, R, 6, blkp] (host numpy).
+    """Tap-row table for kernel K3, int8 [C, R, 6, bp] (host numpy).
 
     Row p, plane j holds the j-th tap waveform point-sampled at the
     nominal chip rate from chip phase (-span + p/ph + off_j), circularly:
     planes (pilot, data) x (E, P, L) with off = (-spacing, 0, +spacing),
     the DualBlockOut order. Each tap is the reference's expression
     (gnsstpu.tracking.dual.dual_fused_table), so the values equal its
-    first six planes.
+    first six planes on lanes [0, blkp); lanes [blkp, bp) hold 0.
     """
     from gnsstpu_torch.signals import glonass_l3
 
-    R, _, blkp = dual_table_shape(sig, phases_per_chip)
+    R, _, bp = dual_table_shape(sig, phases_per_chip)
+    blkp = sig.samples_per_code + 2
     ph = phases_per_chip
     span = dual_fused_span(sig, ph)
     s = float(sig.code_freq) / float(sig.fs)
@@ -168,13 +171,13 @@ def dual_tap_rows(sig: SignalConfig, trk: TrackConfig, prns,
     idx = [np.floor(-span + off + p[:, None] / ph + k[None, :] * s
                     ).astype(np.int64) % sig.code_length
            for off in (-sp, 0.0, sp)]
-    out = np.empty((len(prns), R, 6, blkp), np.int8)
+    out = np.zeros((len(prns), R, 6, bp), np.int8)
     for i, prn in enumerate(prns):
         codes = (glonass_l3.generate_l3_code(glonass_l3.pilot_prn(prn)),
                  glonass_l3.generate_l3_code(glonass_l3.data_prn(prn)))
         for c, code in enumerate(codes):
             for e in range(3):
-                out[i, :, 3 * c + e, :] = code[idx[e]]
+                out[i, :, 3 * c + e, :blkp] = code[idx[e]]
     return out
 
 
@@ -211,7 +214,7 @@ def make_fused_dual_tracker(sig: SignalConfig, trk: TrackConfig, *,
                             n_blocks: int,
                             phases_per_chip: int = PHASES_PER_CHIP):
     """Fused-kernel dual tracker with the scan engine's tuples:
-    track_chunk(chunk [N, 2], tab [C, R, 6, blkp] int8, carr_base [C],
+    track_chunk(chunk [N, 2], tab [C, R, 6, bp] int8, carr_base [C],
     state: TrackState) -> (state, DualTrackOut). The reference pads the
     chunk with 256 zero samples for its aligned window reads; K3 and its
     twin read zeros past the chunk's end instead."""

@@ -163,7 +163,8 @@ class BocEngine(_Base):
     in primary chips (rem_to_samples = fs / 1.023 MHz). The fused
     engine's per-slot code tap rows are built when a PRN is written into
     a slot (the same values as the reference's table of all 50 PRNs,
-    which is ~1.3 GB at 4.2 Msps); the meandr rows are shared.
+    which is ~1.3 GB at 4.2 Msps), as int8 [Rc, 3, bp]; the meandr rows
+    are shared.
     """
 
     slot_keys = ("codes",)
@@ -197,9 +198,10 @@ class BocEngine(_Base):
 
         cb = np.full(C, nco.freq_to_step_u32(self.sig.if_freq,
                                              self.sig.fs), np.uint32)
-        return {"codes": np.zeros((C,) + self._row_shape, np.float32),
-                "sub": np.asarray(self._sub, np.float32),
-                "carr_base": cb}
+        # The fused engine's tap rows are int8, the scan engine's codes f32.
+        return {"codes": np.zeros((C,) + self._row_shape,
+                                  np.int8 if self.fused else np.float32),
+                "sub": np.asarray(self._sub), "carr_base": cb}
 
     def write_slot(self, bank: dict, idx: int, prn: int) -> None:
         if self.fused:
@@ -253,7 +255,7 @@ class DualEngine(_Base):
     Lock and the PLL ride the pilot; ip2 / qp2 carry the data prompts for
     overlay sync and demodulation (nav.glonass_l3). Slot PRNs are the
     satellite numbers 1..31: the pilot code is code(prn), the data code
-    code(prn + 32). The fused engine's tap rows (int8 [R, 6, blkp] per
+    code(prn + 32). The fused engine's tap rows (int8 [R, 6, bp] per
     slot) are built when a PRN is written into a slot; new_bank sizes the
     table from its shape alone.
     """

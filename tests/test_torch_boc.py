@@ -3,7 +3,10 @@
 Same numpy-made samples (gnsstpu's IFSimulator, 2 SVs at C/N0 48 dB-Hz)
 through the JAX function and its port:
   * boc_fused_tables: every tap value identical (the port keeps the E/P/L
-    planes of the reference's [.., 8, BP] tables without the padding);
+    planes of the reference's f32 [.., 8, BP] tables as int8, each plane
+    padded with zeros to 128 lanes), every tap +-1 and every pad 0, and
+    K2's plain twin giving bit-identical outputs on the int8 tables and on
+    unpadded f32 ones;
   * correlate_block_boc and the exact scan tracker: block geometry and
     cursors exact; the ten accumulators within atol 8e-3 (f32 summation
     order over a 16,800-sample block: test_torch_scan.py's 2e-3 for a
@@ -74,6 +77,7 @@ SATS = [SatParams(prn=11, doppler_hz=510.0, code_phase_chips=3210.5,
 ACC_ATOL = 8e-3
 SPC = SIG.samples_per_code
 BLKP = SPC + 2
+BP = tk.plane_stride(BLKP)
 
 
 def pad(c):
@@ -106,12 +110,36 @@ def test_boc_fused_tables_identical():
     jc, js, jsc, jss = jboc.boc_fused_tables(SIG, TRK, PRNS)
     tc, ts, tsc, tss = tboc.boc_fused_tables(TSIG, TTRK, PRNS)
     assert (tsc, tss) == (jsc, jss) == (0.375, 1.25)
-    assert tc.shape == (2, 48, 3, BLKP) and ts.shape == (160, 3, BLKP)
-    # Every tap the kernel can read, edge rows included.
-    np.testing.assert_array_equal(tc, jc[:, :, :3, :BLKP])
-    np.testing.assert_array_equal(ts, js[:, :3, :BLKP])
+    assert BP == 16896 and BP % 128 == 0
+    assert tc.shape == (2, 48, 3, BP) and ts.shape == (160, 3, BP)
+    assert tc.dtype == ts.dtype == np.int8
+    # Every tap the kernel can read, edge rows included, is the reference's
+    # f32 value and exactly +-1, so int8 holds it; the padding is 0.
+    for got, ref in ((tc, jc[:, :, :3, :BLKP]), (ts, js[:, :3, :BLKP])):
+        assert set(np.unique(ref)) == {-1.0, 1.0}
+        np.testing.assert_array_equal(got[..., :BLKP], ref)
+        assert not got[..., BLKP:].any()
     np.testing.assert_array_equal(
         tboc.code_tap_rows(TSIG, TTRK, [4]), tc[1:])
+
+
+def test_k2_twin_int8_tables_equal_f32_tables(chunk, handoff):
+    """The narrowing changes no product: K2's plain twin on the int8
+    padded tables equals, bit for bit, the twin on unpadded f32
+    [.., blkp] tables."""
+    cp, dp, cb = handoff
+    tc, ts, _, _ = tboc.boc_fused_tables(TSIG, TTRK, PRNS)
+    kw = tboc.boc_kernel_kwargs(TSIG, TTRK, n_blocks=6)
+    outs = []
+    for c, s in ((tc, ts), (tc[..., :BLKP].astype(np.float32),
+                            ts[..., :BLKP].astype(np.float32))):
+        args = tboc.boc_kernel_inputs(
+            torch.tensor(chunk), torch.tensor(c), torch.tensor(s),
+            u32_tensor(cb, CPU), tboc.BocTrackState.init(cp, dp, device=CPU),
+            TTRK)
+        outs.append(tk.track_chunk_boc_fused_ref(*args, **kw))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_correlate_block_matches_reference(chunk, handoff):
@@ -327,13 +355,23 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_k2_matches_plain_twin(cuda_device, chunk, handoff):
-    cp, dp, cb = handoff
+@pytest.mark.parametrize("case", ["twin", "repeat"])
+@pytest.mark.parametrize("n_channels", [2, 48])
+def test_cuda_k2_matches_plain_twin(cuda_device, chunk, handoff, case,
+                                    n_channels):
+    """'twin': the kernel against its plain twin; 'repeat': two launches
+    on the same inputs are bit-identical (no atomics in the reduction).
+    The two channels repeat to n_channels: 2 gives 8 CTAs per cluster and
+    one 16-sample step per thread, 48 gives 2 CTAs and several steps."""
+    reps = n_channels // len(PRNS)
+    cp, dp, cb = (np.tile(a, reps) for a in handoff)
     nb = 6
     tc, ts, _, _ = tboc.boc_fused_tables(TSIG, TTRK, PRNS)
+    tc = np.tile(tc, (reps, 1, 1, 1))
     port = tboc.make_fused_boc_tracker(TSIG, TTRK, n_blocks=nb)
-    res = {}
-    for dev in (CPU, cuda_device):
+    devs = (CPU, cuda_device) if case == "twin" else (cuda_device,) * 2
+    res = []
+    for dev in devs:
         before = tk.LAUNCHES["track_chunk_boc_fused"]
         st, out = port(torch.tensor(chunk, device=dev),
                        torch.tensor(tc, device=dev),
@@ -341,11 +379,13 @@ def test_cuda_k2_matches_plain_twin(cuda_device, chunk, handoff):
                        tboc.BocTrackState.init(cp, dp, device=dev))
         assert tk.LAUNCHES["track_chunk_boc_fused"] == before + (
             dev.type == "cuda")
-        res[dev.type] = (st.corr.sample_pos.cpu(),
-                         [t.cpu() for t in out.acc])
-    (gpos, gacc), (rpos, racc) = res["cuda"], res["cpu"]
+        res.append((st.corr.sample_pos.cpu(), [t.cpu() for t in out.acc]))
+    (rpos, racc), (gpos, gacc) = res
     np.testing.assert_array_equal(gpos.numpy(), rpos.numpy())
     np.testing.assert_array_equal(gacc[10].numpy(), racc[10].numpy())
     for a, b in zip(gacc[:10], racc[:10]):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
-                                   atol=16.0)
+        if case == "repeat":
+            assert torch.equal(a, b)
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                       atol=16.0)

@@ -5,7 +5,8 @@ code(prn) x NH(10) and a data code(prn + 32) x Barker(5) x symbols in
 quadrature, C/N0 50 dB-Hz) through the JAX function and its port, at
 tests/test_glonass_l3.py's fused-kernel size (R = 128 rows, blkp = 12002):
   * dual_tap_rows: every tap equal to the reference's dual_fused_table
-    (the port keeps its six used planes as int8), edge rows included;
+    (the port keeps its six used planes as int8, each plane padded with
+    zeros to 128 lanes), edge rows included;
   * correlate_block_dual and the exact dual scan over 20 blocks: block
     geometry and cursors exact; the twelve accumulators within atol 8e-3
     (f32 summation order over a 12,000-sample block, as
@@ -74,6 +75,7 @@ TRUTH = [dict(doppler_hz=1320.0, code_phase_chips=2345.5),
 ACC_ATOL = 8e-3
 SPC = SIG.samples_per_code
 BLKP = SPC + 2
+BP = tk.plane_stride(BLKP)
 
 
 def sky(prns, n_ms, seed=0):
@@ -134,10 +136,12 @@ def _tstate(cp, dp):
 def test_dual_tap_rows_equal_reference_table(ref_table):
     tab = tdual.dual_tap_rows(TSIG, TTRK, PRNS)
     assert tdual.dual_fused_span(TSIG) == jdual.dual_fused_span(SIG) == 1.0
-    assert tab.dtype == np.int8 and tab.shape == (2, 128, 6, BLKP)
+    assert BP == 12032 and BP % 128 == 0
+    assert tab.dtype == np.int8 and tab.shape == (2, 128, 6, BP)
     assert tdual.dual_table_shape(TSIG) == tab.shape[1:]
-    # Every tap the kernel can read, edge rows included.
-    np.testing.assert_array_equal(tab, ref_table[:, :, :6, :BLKP])
+    # Every tap the kernel can read, edge rows included; the padding is 0.
+    np.testing.assert_array_equal(tab[..., :BLKP], ref_table[:, :, :6, :BLKP])
+    assert not tab[..., BLKP:].any()
     np.testing.assert_array_equal(tdual.dual_tap_rows(TSIG, TTRK, [3]),
                                   tab[1:])
 
@@ -247,7 +251,8 @@ def test_k3_twin_matches_reference_kernel(chunk, handoff, ref_table):
 
 def _k3_args(C, blkp, device, tab_dtype=torch.int8):
     return (torch.empty((4096, 2), device=device),
-            torch.zeros((C, 4, 6, blkp), dtype=tab_dtype, device=device),
+            torch.zeros((C, 4, 6, tk.plane_stride(blkp)), dtype=tab_dtype,
+                        device=device),
             torch.zeros((C,), dtype=torch.int32, device=device),
             torch.zeros((C, tk.NF), device=device),
             torch.zeros((C,), dtype=torch.int64, device=device),
@@ -287,7 +292,7 @@ def test_engine_routing():
         assert (eng.period_ms, eng.spc) == (1, SPC)
     fused = make_engine(cfg, "fused")
     bank = fused.new_bank(2)
-    assert bank["tab"].shape == (2, 128, 6, BLKP)
+    assert bank["tab"].shape == (2, 128, 6, BP)
     assert bank["tab"].dtype == np.int8 and fused.slot_keys == ("tab",)
     fused.write_slot(bank, 1, 3)
     np.testing.assert_array_equal(bank["tab"][1],
@@ -379,13 +384,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_k3_matches_plain_twin(cuda_device, chunk, handoff):
-    cp, dp, cb = handoff
+@pytest.mark.parametrize("case", ["twin", "repeat"])
+@pytest.mark.parametrize("n_channels", [2, 48])
+def test_cuda_k3_matches_plain_twin(cuda_device, chunk, handoff, case,
+                                    n_channels):
+    """'twin': the kernel against its plain twin; 'repeat': two launches
+    on the same inputs are bit-identical (no atomics in the reduction).
+    The two channels repeat to n_channels: 2 gives 8 CTAs per cluster and
+    one 16-sample step per thread, 48 gives 2 CTAs and several steps."""
+    reps = n_channels // len(PRNS)
+    cp, dp, cb = (np.tile(a, reps) for a in handoff)
     nb = 12
-    tab = tdual.dual_tap_rows(TSIG, TTRK, PRNS)
+    tab = np.tile(tdual.dual_tap_rows(TSIG, TTRK, PRNS), (reps, 1, 1, 1))
     port = tdual.make_fused_dual_tracker(TSIG, TTRK, n_blocks=nb)
-    res = {}
-    for dev in (CPU, cuda_device):
+    devs = (CPU, cuda_device) if case == "twin" else (cuda_device,) * 2
+    res = []
+    for dev in devs:
         before = tk.LAUNCHES["track_chunk_dual_fused"]
         st, out = port(torch.tensor(chunk, device=dev),
                        torch.tensor(tab, device=dev), u32_tensor(cb, dev),
@@ -393,11 +407,13 @@ def test_cuda_k3_matches_plain_twin(cuda_device, chunk, handoff):
                                         device=dev))
         assert tk.LAUNCHES["track_chunk_dual_fused"] == before + (
             dev.type == "cuda")
-        res[dev.type] = (st.corr.sample_pos.cpu(),
-                         [t.cpu() for t in out.acc])
-    (gpos, gacc), (rpos, racc) = res["cuda"], res["cpu"]
+        res.append((st.corr.sample_pos.cpu(), [t.cpu() for t in out.acc]))
+    (rpos, racc), (gpos, gacc) = res
     np.testing.assert_array_equal(gpos.numpy(), rpos.numpy())
     np.testing.assert_array_equal(gacc[12].numpy(), racc[12].numpy())
     for a, b in zip(gacc[:12], racc[:12]):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
-                                   atol=12.0)
+        if case == "repeat":
+            assert torch.equal(a, b)
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                       atol=12.0)

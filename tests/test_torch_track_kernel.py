@@ -7,6 +7,9 @@ held to test_track_kernel.py's tolerances: block geometry and cursors
 exact, accumulators rtol 2e-3 / atol 2, carrier Doppler 0.05 Hz, code
 remainder 5e-4 chip, carrier phase within one LSB step flip per block.
 
+K2's and K3's cluster split (cluster_split) is checked here for the
+channel counts and block lengths the port runs and beyond.
+
 The CUDA kernel itself is compared with the twin by the tests marked
 `cuda` (skipped without a card) and by chip_smoke.py on the H100.
 """
@@ -109,6 +112,35 @@ def test_wrapper_refuses_other_devices():
             *args, n_blocks=1, blkp=blkp, code_length=1023,
             phases_per_chip=64, spacing=0.3, span_chips=1.0,
             base_code_step=0.5, fs=SIG.fs, coefs=(1.0,) * 5)
+
+
+@pytest.mark.parametrize("blkp", [16802, 24002])
+@pytest.mark.parametrize("C", [1, 3, 12, 48, 132, 200])
+def test_cluster_split_covers_the_block(C, blkp):
+    """K2's (16,802 at 4.2 Msps) and K3's (24,002 at 24 Msps) blocks split
+    over N CTAs per channel on a 132-SM card: at most 8 CTAs, never more
+    CTAs than SMs while the channels fit, 16-sample slices whose N ranges
+    are disjoint and cover every lane of the block."""
+    n_sms = 132
+    N, S = tk.cluster_split(C, blkp, n_sms)
+    assert 1 <= N <= tk.MAX_CLUSTER
+    if C <= n_sms:
+        assert C * N <= n_sms
+    assert S % 16 == 0 and N * S >= blkp
+    owner = np.full(blkp, -1)
+    for i in range(N):
+        lanes = slice(i * S, min((i + 1) * S, blkp))
+        assert (owner[lanes] == -1).all()
+        owner[lanes] = i
+    assert (owner >= 0).all()
+    assert tk.plane_stride(blkp) % 128 == 0
+    assert tk.plane_stride(blkp) >= blkp
+    if (C, blkp) == (12, 24002):
+        assert (N, S) == (8, 3008)
+    if (C, blkp) == (12, 16802):
+        assert (N, S) == (8, 2112)
+    if (C, blkp) == (48, 24002):
+        assert N == 2
 
 
 @pytest.fixture
