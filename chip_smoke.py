@@ -28,11 +28,26 @@ simulator from a fixed seed:
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: a CUDA card is required; its name and power limit;
   2. build: the port's three CUDA kernels from the sources in this
-     checkout, one nvcc per source, started together;
-  3. K1 on the card against its plain PyTorch twin (C=12 x 500 blocks and
-     C=9 x 6 blocks, tests/test_track_kernel.py's tolerances);
+     checkout, one nvcc per source, started together, and K1's build
+     record (threads per CTA, registers, spill, static and dynamic shared
+     memory, samples per prefetch buffer, CTAs resident per SM) at the
+     blkp of GPS, BeiDou 4.096 Msps, GLONASS 8.192 Msps and GPS
+     16.384 Msps; a spill fails the run;
+  3. K1 on the card against its plain PyTorch twin at six shapes: GPS
+     2.048 Msps at C=12 x 500 (the main path's launch), 9 x 6 and 48 x 6;
+     BeiDou B1I 4.096 Msps (blkp 4,098) and GLONASS L1OF 8.192 Msps (blkp
+     8,194, FDMA channels), C=3 x 6; GPS 16.384 Msps (blkp 16,386, past
+     the double buffer), C=2 x 4. blksize and sample_pos exact, the other
+     lanes at tests/test_track_kernel.py's tolerances, two launches on
+     the same inputs bit-identical;
   4. K1 time against the twin (CUDA events, C=12 x 1000 and x 500
-     blocks) and the time of one on-chunk acquisition search;
+     blocks), the kernel alone at C=48 x 500, its per-block floor (C=12 x
+     500 blocks of 64 samples; blocks x floor is the chain floor), the
+     stamped instance's mean ns per block in each phase (tk.FUSED_PHASES:
+     the copies' start and the LO angles beside the chain; the wait on
+     the copies, products, reduction, loop update and closing barrier on
+     it) at C=12 x 500 and on the floor's blocks, and the time of one
+     on-chunk acquisition search;
   5. the GPS main path (warm-up run, then a measured run) with its
      end-to-end checks and K1's launch count;
   6. K2's build record: its cluster launch at C=12 (N CTAs per channel,
@@ -69,7 +84,7 @@ products, 6 for the wipeoff and, every tap being +-1, one signed add per
 accumulator, K2's sub x code tap products being sign flips: 18 for K1's
 six accumulators, 22 for K2's ten, 24 for K3's twelve; the per-block
 sincos and loop filters are left out, under 1%), for the samples this
-run's blocks cover. K2's and K3's tap rows are int8, one byte per tap.
+run's blocks cover. The tap rows of all three are int8, one byte per tap.
 """
 
 from __future__ import annotations
@@ -96,6 +111,7 @@ from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.sources import DevicePackedArraySource
 from gnsstpu_torch.sim import IFSimulator, SatParams
 from gnsstpu_torch.signals import galileo_e1, glonass_l3
+from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.sim.scenario import (bench_constellation,
                                         galileo_constellation,
                                         position_error_m)
@@ -108,6 +124,20 @@ SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 TRK = TrackConfig(dll_bw=1.0, el_spacing=0.3, pll_bw=25.0, fll_bw=250.0)
 K1_SOURCE = "gnsstpu_torch/csrc/track_fused.cu"
 K1_REPLACES = "gnsstpu/ops/track_kernel.py:274"
+# K1's other families and rates (blkp = samples per code + 2): BeiDou B1I
+# live at 4.096 Msps (tests/test_live_families.py:206, blkp 4,098),
+# GLONASS L1OF at 8.192 Msps (tests/test_glonass.py:19, blkp 8,194) and GPS
+# at 16.384 Msps (blkp 16,386, past what K1's double buffer holds).
+BSIG = SignalConfig(signal="beidou_b1i", if_freq=0.0, fs=4.096e6,
+                    code_freq=2.046e6, code_length=2046, complex_iq=True)
+BTRK = TrackConfig(dll_bw=1.5, pll_bw=25.0, fll_bw=150.0,
+                   aid_div=1561.098e6 / 2.046e6)
+OSIG = SignalConfig(signal="glonass_l1of", if_freq=0.0, fs=8.192e6,
+                    code_freq=0.511e6, code_length=511, fdma_step=562.5e3,
+                    complex_iq=True)
+OTRK = TrackConfig(dll_bw=1.0, pll_bw=25.0, fll_bw=250.0,
+                   aid_div=1602e6 / 0.511e6)
+HSIG = SignalConfig(if_freq=0.0, fs=16.384e6, complex_iq=True)
 GSIG = SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
                     code_freq=galileo_e1.SUB_FREQ,
                     code_length=galileo_e1.SUB_LENGTH)
@@ -205,27 +235,40 @@ def rows_used(rem0, rem_out, offs, ph, n_rows) -> np.ndarray:
     return np.stack(rows, axis=-1).transpose(1, 0, 2).astype(np.int64)
 
 
-def k1_inputs(C: int, n_blocks: int, device):
+def k1_inputs(C: int, n_blocks: int, device, sig=SIG, trk=TRK):
     """K1's tensor and static arguments for test_track_kernel.py's
     _setup widened to C channels, with the signal from the port's
-    simulator."""
-    prns = [3, 9, 17, 25, 5, 12, 22, 28, 31, 7, 1, 14][:C]
+    simulator: up to 12 satellites (GLONASS: frequency channels, each at
+    its FDMA offset), channel i tracking satellite i mod 12."""
+    sd = get_signal(sig.signal)
+    zero = sd.fdma_zero_prn
+    n = min(C, 12)
+    prns = ([3, 9, 17, 25, 5, 12, 22, 28, 31, 7, 1, 14] if zero is None
+            else [2, 5, 8, 11, 13, 1, 4, 7, 10, 12, 14, 3])[:n]
+    offs = [0.0 if zero is None
+            else sd.carrier_freq(p) - sd.carrier_freq(zero) for p in prns]
     sats = [SatParams(prn=p, doppler_hz=400.0 * i - 600.0,
-                      code_phase_chips=50.0 * i + 11.0, cn0_dbhz=49.0)
+                      if_offset_hz=offs[i],
+                      code_phase_chips=(50.0 * i + 11.0) % sig.code_length,
+                      cn0_dbhz=49.0)
             for i, p in enumerate(prns)]
-    chunk = IFSimulator(SIG, sats, noise_sigma=1.0, seed=4,
+    chunk = IFSimulator(sig, sats, noise_sigma=1.0, seed=4,
                         device=device).generate_tensor(n_blocks + 3)
-    tab = torch.as_tensor(tfused.fused_code_table(SIG, TRK, prns),
-                          device=device)
-    cb, ia = tscan.channel_consts(SIG, TRK, prns)
-    spchip = SIG.fs / SIG.code_freq
+    ch = np.arange(C) % n
+    tab = torch.as_tensor(tfused.fused_tap_rows(
+        tfused.fused_code_table(sig, trk, prns)), device=device)[
+            torch.as_tensor(ch, device=device)]
+    cb, ia = tscan.channel_consts(
+        sig, trk, [prns[i] for i in ch],
+        if_offsets_hz=None if zero is None else [offs[i] for i in ch])
+    spchip = sig.fs / sig.code_freq
     state0 = tscan.TrackState.init(
-        np.array([int(round(s.code_phase_chips * spchip)) for s in sats]),
-        np.array([s.doppler_hz + 37.0 for s in sats], np.float32),
-        device=device)
+        np.array([int(round(sats[i].code_phase_chips * spchip)) for i in ch]),
+        np.array([sats[i].doppler_hz + 37.0 for i in ch], np.float32),
+        aid_div=trk.aid_div, device=device)
     consts = (u32_tensor(cb, device), torch.as_tensor(ia, device=device))
     args = tfused.kernel_inputs(chunk, tab, consts, state0)
-    return args, tfused.kernel_kwargs(SIG, TRK, n_blocks=n_blocks)
+    return args, tfused.kernel_kwargs(sig, trk, n_blocks=n_blocks)
 
 
 def twin_parity(tag: str, inputs, kernel, twin, *, blk_lane: int,
@@ -266,14 +309,16 @@ def twin_parity(tag: str, inputs, kernel, twin, *, blk_lane: int,
     return dev, ro
 
 
-def k1_compare(C: int, n_blocks: int, device) -> tuple:
+def k1_compare(C: int, n_blocks: int, device, sig=SIG, trk=TRK) -> tuple:
     """K1's wrapper against its plain twin on the card at
     test_track_kernel.py's tolerances (carrier phase within one LSB step
-    flip per block, counted 4x as there). Returns (deviations, K1's bound
-    at this shape)."""
-    args, kw = inputs = k1_inputs(C, n_blocks, device)
+    flip per block, counted 4x as there), and against itself on a second
+    launch. Returns (deviations, K1's bound at this shape)."""
+    args, kw = inputs = k1_inputs(C, n_blocks, device, sig, trk)
+    tag = f"K1 {sig.signal} {sig.fs / 1e6:g} Msps C={C}"
+    repeat_identical(tag, inputs, tk.track_chunk_fused)
     dev, ro = twin_parity(
-        f"K1 C={C}", inputs, tk.track_chunk_fused, tk.track_chunk_fused_ref,
+        tag, inputs, tk.track_chunk_fused, tk.track_chunk_fused_ref,
         blk_lane=tk.O_BLKSIZE,
         acc_lanes=(tk.O_IE, tk.O_QE, tk.O_IP, tk.O_QP, tk.O_IL, tk.O_QL),
         acc_tol=(2e-3, 2.0),
@@ -290,7 +335,8 @@ def k1_compare(C: int, n_blocks: int, device) -> tuple:
                      k["row_off"], kw["phases_per_chip"], tab.shape[1])
     n_rows = sum(len(np.unique(rows[c])) for c in range(C))
     samples = float(ro[..., tk.O_BLKSIZE].sum())
-    n_bytes = (chunk.numel() * 4 + n_rows * kw["blkp"] * 4
+    dev["blkp"] = kw["blkp"]
+    n_bytes = (chunk.numel() * 4 + n_rows * kw["blkp"]
                + 2 * finit.numel() * 4 + ro.size * 4)
     return dev, bound(n_bytes, 18.0 * samples)
 
@@ -315,9 +361,63 @@ def kernel_times(inputs, kernel, twin, reps: int = 20) -> tuple:
     return timed(kernel, reps), (timed(twin, 1) if twin else None)
 
 
-def k1_times(C: int, n_blocks: int, device) -> tuple:
+def k1_times(C: int, n_blocks: int, device, twin: bool = True) -> tuple:
     return kernel_times(k1_inputs(C, n_blocks, device),
-                        tk.track_chunk_fused, tk.track_chunk_fused_ref)
+                        tk.track_chunk_fused,
+                        tk.track_chunk_fused_ref if twin else None)
+
+
+def k1_floor_inputs(C: int, n_blocks: int, device):
+    """K1's arguments for blocks of 64 samples (zero signal, one tap row,
+    as k3_floor_ms): what a block of its chain costs beyond its samples
+    (the copies, the reduction, the loop update, the barriers)."""
+    blkp = 64
+    i64 = torch.zeros((C,), dtype=torch.int64, device=device)
+    args = (torch.zeros((n_blocks * blkp + 256, 2), device=device),
+            torch.ones((C, 1, tk.plane_stride(blkp)), dtype=torch.int8,
+                       device=device),
+            torch.zeros((C,), dtype=torch.int32, device=device),
+            torch.zeros((C, tk.NF), device=device), i64, i64.clone())
+    kw = dict(tfused.kernel_kwargs(SIG, TRK, n_blocks=n_blocks), blkp=blkp)
+    return args, kw
+
+
+def k1_split(inputs, n_blocks: int) -> dict:
+    """K1's stamped instance on inputs (args, kw) of n_blocks blocks: its
+    time per launch, the SM clock, and the mean ns per block in each phase
+    (tk.FUSED_PHASES), over the channels; cycles_per_block sums the chain
+    (tk.FUSED_CHAIN). The clock is torch.cuda.clock_rate() read while
+    stamped launches run (NVML; raises where it cannot be read); the
+    chain's cycles of a launch over its CUDA-event time are printed beside
+    it as a check, not used."""
+    args, kw = inputs
+    run = tk.track_chunk_fused_stamped
+    ms, _ = kernel_times(inputs, run, None, reps=10)
+    for _ in range(40):
+        stamps = run(*args, **kw)[-1]
+    mhz = float(torch.cuda.clock_rate(args[0].device))
+    torch.cuda.synchronize()
+    cyc = stamps.cpu().numpy().mean(0) / n_blocks
+    chain = [tk.FUSED_PHASES.index(n) for n in tk.FUSED_CHAIN]
+    per_block = float(cyc[chain].sum())
+    return {"ms": ms, "sm_mhz": mhz,
+            "sm_mhz_cycles_over_event_time":
+                per_block * n_blocks / (ms * 1e3),
+            "cycles_per_block": per_block,
+            "ns_per_block": {n: 1e3 * float(c) / mhz
+                             for n, c in zip(tk.FUSED_PHASES, cyc)}}
+
+
+def k1_build_record(built) -> dict:
+    """K1's build record: for its main instance at the blkp of GPS,
+    BeiDou 4.096 Msps, GLONASS 8.192 Msps and GPS 16.384 Msps, what it
+    uses (tk.fused_info); raises on a spill."""
+    spill = spill_bytes(built)
+    if spill:
+        raise AssertionError(f"K1 spills {spill} bytes: {ptxas(built)}")
+    return {"spill_bytes": spill, "main": {
+        s.samples_per_code + 2: tk.fused_info(s.samples_per_code + 2)
+        for s in (SIG, BSIG, OSIG, HSIG)}}
 
 
 def acq_search_ms(device, reps: int = 20) -> float:
@@ -821,22 +921,46 @@ def main() -> int:
     k1b = built["track_chunk_fused"]
     print(f"[2 build] three kernels in {build_wall:.2f} s wall; K1 "
           f"{k1b.path.name} built in {k1b.build_s:.2f} s; "
-          f"{ptxas(k1b)}", flush=True)
+          f"{ptxas(k1b)}; K1 build record: "
+          f"{json.dumps(k1_build_record(k1b))}", flush=True)
 
-    # 3. K1 against its plain twin on the card.
+    # 3. K1 against its plain twin on the card, at six shapes.
     dev500, (k1_bound_ms, k1_bound_by) = k1_compare(12, 500, dev)
-    dev6, _ = k1_compare(9, 6, dev)
-    print(f"[3 K1 parity] C=12x500: {json.dumps(dev500)} | C=9x6: "
-          f"{json.dumps(dev6)}", flush=True)
+    k1_par = {"GPS 2.048 Msps C=12x500": dev500,
+              "GPS 2.048 Msps C=9x6": k1_compare(9, 6, dev)[0],
+              "GPS 2.048 Msps C=48x6": k1_compare(48, 6, dev)[0],
+              "BeiDou B1I 4.096 Msps C=3x6": k1_compare(
+                  3, 6, dev, BSIG, BTRK)[0],
+              "GLONASS L1OF 8.192 Msps C=3x6": k1_compare(
+                  3, 6, dev, OSIG, OTRK)[0],
+              "GPS 16.384 Msps C=2x4": k1_compare(2, 4, dev, HSIG)[0]}
+    print(f"[3 K1 parity] tolerances accumulators rtol 2e-3 atol 2, "
+          f"carr_doppler 0.05 Hz, rem_code_phase 5e-4 chip | "
+          + " | ".join(f"{k}: {json.dumps(v)}" for k, v in k1_par.items())
+          + " | two launches bit-identical at all six shapes", flush=True)
 
-    # 4. K1 time against the twin.
+    # 4. K1 time against the twin, its per-block floor and its split.
     k_ms, p_ms = k1_times(12, 1000, dev)
     k500_ms, p500_ms = k1_times(12, 500, dev)
+    k48_ms, _ = k1_times(48, 500, dev, twin=False)
+    floor_in = k1_floor_inputs(12, 500, dev)
+    k1f_ms = kernel_times(floor_in, tk.track_chunk_fused, None)[0]
+    gps_in = k1_inputs(12, 500, dev)
+    splits = {"C=12x500": k1_split(gps_in, 500),
+              "64-sample floor": k1_split(floor_in, 500)}
     print(f"[4 K1 time] C=12x1000 blocks (1.000 s of signal): kernel "
           f"{k_ms:.4f} ms (real-time factor {1000.0 / k_ms:.1f}), plain "
           f"twin {p_ms:.2f} ms (real-time factor {1000.0 / p_ms:.2f}); "
-          f"C=12x500: kernel {k500_ms:.4f} ms, twin {p500_ms:.2f} ms; "
-          f"on-chunk acquisition search {acq_search_ms(dev):.3f} ms",
+          f"C=12x500: kernel {k500_ms:.4f} ms ({1e3 * k500_ms / 500:.3f} "
+          f"us per block), twin {p500_ms:.2f} ms; C=48x500: kernel "
+          f"{k48_ms:.4f} ms ({1e3 * k48_ms / 500:.3f} us per block); "
+          f"per-block floor (C=12x500 blocks of 64 samples) "
+          f"{1e3 * k1f_ms / 500:.3f} us, so the chain floor at C=12x500 "
+          f"is {k1f_ms:.4f} ms; bound at C=12x500 {k1_bound_ms:.5f} ms "
+          f"({k1_bound_by}, one byte per tap); stamped instance split "
+          f"(mean ns per block; chain {list(tk.FUSED_CHAIN)}): "
+          + " | ".join(f"{k}: {json.dumps(v)}" for k, v in splits.items())
+          + f"; on-chunk acquisition search {acq_search_ms(dev):.3f} ms",
           flush=True)
 
     # 5. GPS main path.

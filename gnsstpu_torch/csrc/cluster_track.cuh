@@ -21,9 +21,11 @@
 //   * the leader's thread 0 runs the loop filters and the next block's
 //     geometry, writes that geometry into every CTA's shared memory
 //     (DSMEM), and a second cluster barrier releases the next block.
-// The host side picks N and S (gnsstpu_torch/ops/track_kernel.py::
-// cluster_split); the C entry points refuse any other pair and derive the
-// tap-plane stride from blkp themselves (plane_stride).
+// The host side picks N (gnsstpu_torch/ops/track_kernel.py::
+// cluster_split); the C entry points derive S (slice_len) and the
+// tap-plane stride (plane_stride) from blkp and N themselves. K1
+// (track_fused.cu, one CTA per channel, no cluster) shares plane_stride,
+// FINE and MAX_BLKP.
 
 #pragma once
 
@@ -53,12 +55,6 @@ __host__ __device__ inline int plane_stride(int blkp) {
 // Samples per CTA: ceil(blkp / N) rounded up to a multiple of VEC.
 __host__ __device__ inline int slice_len(int blkp, int N) {
   return ((blkp + N - 1) / N + VEC - 1) / VEC * VEC;
-}
-
-// The (N, S) split a C entry point accepts for this blkp.
-inline bool valid_split(int blkp, int N, int S) {
-  return blkp >= 1 && blkp <= MAX_BLKP && N >= 1 && N <= MAX_N &&
-         S == slice_len(blkp, N);
 }
 
 // LO angles of one block for one CTA: cos / sin of the 64 fine angles

@@ -289,10 +289,10 @@ extern "C" int track_chunk_boc_fused_cuda(
     const int8_t* stab, const int* pos0, const float* finit,
     const long long* cinit, const long long* carrbase, float* out,
     float* ffin, int* pos_out, long long* cph_out, int C, int n_blocks,
-    int Rc, int Rs, int blkp, int N, int S, const float* consts,
-    int n_consts, void* stream) {
-  if (n_consts != NCONST || !ctrack::valid_split(blkp, N, S) ||
-      Rc < 1 || Rs < 1 || C < 0 || n_blocks < 0)
+    int Rc, int Rs, int blkp, int N, const float* consts, int n_consts,
+    void* stream) {
+  if (n_consts != NCONST || blkp < 1 || blkp > ctrack::MAX_BLKP || N < 1 ||
+      N > ctrack::MAX_N || Rc < 1 || Rs < 1 || C < 0 || n_blocks < 0)
     return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   Params p;
@@ -304,7 +304,7 @@ extern "C" int track_chunk_boc_fused_cuda(
   p.blkp = blkp;
   p.plane = ctrack::plane_stride(blkp);
   p.N = N;
-  p.S = S;
+  p.S = ctrack::slice_len(blkp, N);
   float* dst[NCONST] = {
       &p.code_length, &p.sub_length, &p.base_code_step, &p.base_sub_step,
       &p.inv_fs, &p.nco_scale, &p.ph_code, &p.ph_sub, &p.span_code,

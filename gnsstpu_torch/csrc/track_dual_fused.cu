@@ -253,9 +253,9 @@ extern "C" int track_chunk_dual_fused_cuda(
     const int* pos0, const float* finit, const long long* cinit,
     const long long* carrbase, float* out, float* ffin, int* pos_out,
     long long* cph_out, int C, int n_blocks, int R, int blkp,
-    int N, int S, const float* consts, int n_consts, void* stream) {
-  if (n_consts != NCONST || !ctrack::valid_split(blkp, N, S) ||
-      R < 1 || C < 0 || n_blocks < 0)
+    int N, const float* consts, int n_consts, void* stream) {
+  if (n_consts != NCONST || blkp < 1 || blkp > ctrack::MAX_BLKP || N < 1 ||
+      N > ctrack::MAX_N || R < 1 || C < 0 || n_blocks < 0)
     return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   Params p;
@@ -266,7 +266,7 @@ extern "C" int track_chunk_dual_fused_cuda(
   p.blkp = blkp;
   p.plane = ctrack::plane_stride(blkp);
   p.N = N;
-  p.S = S;
+  p.S = ctrack::slice_len(blkp, N);
   float* dst[NCONST] = {
       &p.code_length, &p.base_code_step, &p.inv_fs, &p.nco_scale, &p.ph,
       &p.span, &p.ang_scale, &p.inv_pi, &p.inv_2pi, &p.k1, &p.k2, &p.k3,

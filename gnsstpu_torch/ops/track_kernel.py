@@ -11,10 +11,12 @@ PyTorch twins: the same algorithm with the block loop in Python, channels
 batched. A wrapper takes its twin only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
 
-K1 layouts (the reference's, with the chunk kept [N, 2] and u32 values in
-int64 tensors):
+K1 layouts (the reference's, with the chunk kept [N, 2], u32 values in
+int64 tensors, and the tap table as int8 with its rows padded):
   chunk     f32 [N, 2]        I/Q samples shared by all channels
-  tab       f32 [C, R, blkp]  phase-row code tables (fused_code_table)
+  tab       i8  [C, R, bp]    phase-row code tables: fused_code_table's
+                              +-1 rows on lanes [0, blkp), zeros up to
+                              bp = plane_stride(blkp) (fused_tap_rows)
   pos0      i32 [C]           chunk cursor per channel
   finit     f32 [C, 16]       float state + consts (_F_* lanes)
   cinit     i64 [C]           u32 carrier NCO phase
@@ -37,8 +39,12 @@ int8, padded as K2's:
   tab       i8  [C, R, 6, bp]    pilot E/P/L, data E/P/L tap rows
 and returns out f32 [n_blocks, C, 24] (OD_* lanes), ffin, pos, cphase.
 
-K2 and K3 run each channel on a thread-block cluster of N CTAs, each
-owning S samples of a block (cluster_split; csrc/cluster_track.cuh).
+K1 runs each channel on one CTA that prefetches the next block's window
+and tap rows into shared memory while it works on the current one
+(csrc/track_fused.cu). K2 and K3 run each channel on a thread-block
+cluster of N CTAs, each owning S samples of a block (cluster_split;
+csrc/cluster_track.cuh). Every kernel takes blocks of up to MAX_BLKP
+samples.
 """
 
 from __future__ import annotations
@@ -99,11 +105,23 @@ def reset_launches() -> None:
 
 #: Most CTAs in one of K2's / K3's clusters (the portable cluster size).
 MAX_CLUSTER = 8
+#: Longest block (samples) any of the three kernels takes
+#: (csrc/cluster_track.cuh MAX_BLKP).
+MAX_BLKP = 32768
+#: Phases of K1's stamped instance, in the order of its stamps' columns.
+#: Off the chain (beside it, on other warps): the window's warp starting
+#: the next block's window copy, and the LO angles. The chain (thread 0's):
+#: the wait on this block's copies, products, reduction, loop update, and
+#: the closing barrier (with what of the angles outlasts the update).
+FUSED_PHASES = ("issue", "angles", "wait", "products", "reduction", "update",
+                "barrier")
+FUSED_CHAIN = FUSED_PHASES[2:]
 
 
 def plane_stride(blkp: int) -> int:
-    """Lanes of one K2 / K3 tap plane: blkp rounded up to 128, so every
-    16-tap vector of a plane is 16-byte aligned."""
+    """Lanes of one tap plane (K1's rows, K2's and K3's planes): blkp
+    rounded up to 128, so every 16-tap vector of a plane is 16-byte
+    aligned."""
     return -(-blkp // 128) * 128
 
 
@@ -212,7 +230,9 @@ def track_chunk_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
         lo_c, lo_s = _factored_lo(ph, cstep, blkp, k["ang_scale"])
         bb_i = (xi * lo_c + xq * lo_s) * mask
         bb_q = (xq * lo_c - xi * lo_s) * mask
-        e_rows, p_rows, l_rows = (tab[ch, r] for r in rows)
+        # Taps widened to f32 (int8 rows padded past blkp).
+        e_rows, p_rows, l_rows = (tab[ch, r, :blkp].to(torch.float32)
+                                  for r in rows)
         ie = (e_rows * bb_i).sum(1)
         qe = (e_rows * bb_q).sum(1)
         ip = (p_rows * bb_i).sum(1)
@@ -263,9 +283,12 @@ def _lib():
     fn = built.lib.track_chunk_fused_cuda
     if not fn.argtypes:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 9 + [i] * 5
+        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 5
                        + [fl] * 15 + [p])
         fn.restype = ctypes.c_int
+        info = built.lib.track_fused_info
+        info.argtypes = [i, p]
+        info.restype = ctypes.c_int
         err = built.lib.track_fused_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -284,35 +307,39 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
-                      n_blocks: int, blkp: int, code_length: int,
-                      phases_per_chip: int, spacing: float,
-                      span_chips: float, base_code_step: float, fs: float,
-                      coefs):
-    """Run K1. coefs = (k1, k2, k3, c_dll_p, c_dll_i).
+def _check_blkp(blkp: int) -> None:
+    if not 1 <= blkp <= MAX_BLKP:
+        raise ValueError(f"blkp {blkp} outside [1, MAX_BLKP = {MAX_BLKP}]: "
+                         f"longer blocks than the kernels take")
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (on
-    torch.cuda.current_stream()) or raise.
-    """
-    kw = dict(n_blocks=n_blocks, blkp=blkp, code_length=code_length,
-              phases_per_chip=phases_per_chip, spacing=spacing,
-              span_chips=span_chips, base_code_step=base_code_step, fs=fs,
-              coefs=coefs)
+
+def _check_fused(chunk, tab, pos0, finit, cinit, carrbase, blkp: int,
+                 n_blocks: int) -> None:
+    """K1's argument checks, the same on every device."""
+    _check_blkp(blkp)
     dev = chunk.device
-    if dev.type == "cpu":
-        return track_chunk_fused_ref(chunk, tab, pos0, finit, cinit,
-                                     carrbase, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"track_chunk_fused: unsupported device {dev}")
     C, R = tab.shape[0], tab.shape[1]
     _check("chunk", chunk, torch.float32, (chunk.shape[0], 2), dev)
-    _check("tab", tab, torch.float32, (C, R, blkp), dev)
+    _check("tab", tab, torch.int8, (C, R, plane_stride(blkp)), dev)
     _check("pos0", pos0, torch.int32, (C,), dev)
     _check("finit", finit, torch.float32, (C, NF), dev)
     _check("cinit", cinit, torch.int64, (C,), dev)
     _check("carrbase", carrbase, torch.int64, (C,), dev)
     if n_blocks < 0:
         raise ValueError("n_blocks must be >= 0")
+
+
+def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
+                  n_blocks: int, blkp: int, code_length: int,
+                  phases_per_chip: int, spacing: float, span_chips: float,
+                  base_code_step: float, fs: float, coefs):
+    """One launch of K1 (its stamped instance when stamps is not None)
+    on CUDA tensors already checked; returns (out, ffin, pos, cphase)."""
+    dev = chunk.device
+    if chunk.data_ptr() % 8:
+        raise ValueError("chunk must be 8-byte aligned")
+    _check_aligned16("tab", tab)
+    C, R = tab.shape[0], tab.shape[1]
     out = torch.empty((n_blocks, C, NOUT), dtype=torch.float32, device=dev)
     ffin = torch.empty((C, NF), dtype=torch.float32, device=dev)
     pos = torch.empty((C,), dtype=torch.int32, device=dev)
@@ -326,6 +353,7 @@ def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
         chunk.data_ptr(), chunk.shape[0], tab.data_ptr(), pos0.data_ptr(),
         finit.data_ptr(), cinit.data_ptr(), carrbase.data_ptr(),
         out.data_ptr(), ffin.data_ptr(), pos.data_ptr(), cph.data_ptr(),
+        None if stamps is None else stamps.data_ptr(),
         C, n_blocks, R, blkp, code_length,
         k["base_code_step"], k["inv_fs"], k["nco_scale"], k["ph"],
         *k["row_off"], k["ang_scale"], k["inv_pi"], k["inv_2pi"],
@@ -333,8 +361,71 @@ def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
     if rc != 0:
         msg = built.lib.track_fused_error_string(rc).decode()
         raise RuntimeError(f"track_chunk_fused launch failed: {msg} ({rc})")
-    LAUNCHES["track_chunk_fused"] += 1
     return out, ffin, pos, cph
+
+
+def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
+                      n_blocks: int, blkp: int, code_length: int,
+                      phases_per_chip: int, spacing: float,
+                      span_chips: float, base_code_step: float, fs: float,
+                      coefs):
+    """Run K1. coefs = (k1, k2, k3, c_dll_p, c_dll_i).
+
+    Dtypes and shapes are checked on every device (blkp <= MAX_BLKP, tab
+    int8 [C, R, plane_stride(blkp)]). CPU tensors then run the plain
+    twin; CUDA tensors launch the kernel (on torch.cuda.current_stream())
+    or raise.
+    """
+    kw = dict(n_blocks=n_blocks, blkp=blkp, code_length=code_length,
+              phases_per_chip=phases_per_chip, spacing=spacing,
+              span_chips=span_chips, base_code_step=base_code_step, fs=fs,
+              coefs=coefs)
+    _check_fused(chunk, tab, pos0, finit, cinit, carrbase, blkp, n_blocks)
+    dev = chunk.device
+    if dev.type == "cpu":
+        return track_chunk_fused_ref(chunk, tab, pos0, finit, cinit,
+                                     carrbase, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"track_chunk_fused: unsupported device {dev}")
+    res = _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, None, **kw)
+    LAUNCHES["track_chunk_fused"] += 1
+    return res
+
+
+def track_chunk_fused_stamped(chunk, tab, pos0, finit, cinit, carrbase,
+                              **kw):
+    """K1's stamped instance on CUDA tensors, for measurement: the same
+    outputs as track_chunk_fused plus stamps int64 [C, len(FUSED_PHASES)],
+    each channel's SM cycles per phase summed over its blocks (clock64()
+    on the thread each phase runs on; FUSED_CHAIN are thread 0's). Not a
+    launch of the main path, so not counted in LAUNCHES."""
+    _check_fused(chunk, tab, pos0, finit, cinit, carrbase, kw["blkp"],
+                 kw["n_blocks"])
+    if chunk.device.type != "cuda":
+        raise ValueError("track_chunk_fused_stamped needs CUDA tensors")
+    stamps = torch.zeros((tab.shape[0], len(FUSED_PHASES)),
+                         dtype=torch.int64, device=chunk.device)
+    res = _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps,
+                        **kw)
+    return (*res, stamps)
+
+
+def fused_info(blkp: int) -> dict:
+    """What K1's main instance uses at this blkp: threads per CTA,
+    registers, static / dynamic shared and local bytes per CTA, samples
+    per prefetch buffer (W; past it a block is read from global memory)
+    and cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    _check_blkp(blkp)
+    lib = _lib().lib
+    info = (ctypes.c_int * 7)()
+    rc = lib.track_fused_info(blkp, ctypes.addressof(info))
+    if rc != 0:
+        msg = lib.track_fused_error_string(rc).decode()
+        raise RuntimeError(f"track_chunk_fused info failed: {msg} ({rc})")
+    return dict(blkp=blkp, threads=info[3], registers=info[0],
+                static_smem=info[1], dynamic_smem=info[4],
+                local_bytes=info[2], ctas_per_sm=info[5],
+                buffered_samples=info[6])
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +571,7 @@ def _boc_lib():
     fn = built.lib.track_chunk_boc_fused_cuda
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 7
+        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 6
                        + [p, i, p])
         fn.restype = ctypes.c_int
         _bind_info_and_errors(built.lib, "track_boc_fused")
@@ -580,14 +671,14 @@ def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
                     base_sub_step=base_sub_step, fs=fs, coefs=coefs)
     consts = (ctypes.c_float * len(BOC_CONSTS))(
         *(k[name] for name in BOC_CONSTS))
-    N, S = cluster_split(C, blkp, _sm_count(dev))
+    N, _ = cluster_split(C, blkp, _sm_count(dev))
     built = _boc_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = built.lib.track_chunk_boc_fused_cuda(
         chunk.data_ptr(), chunk.shape[0], ctab.data_ptr(), stab.data_ptr(),
         pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
         carrbase.data_ptr(), out.data_ptr(), ffin.data_ptr(),
-        pos.data_ptr(), cph.data_ptr(), C, n_blocks, Rc, Rs, blkp, N, S,
+        pos.data_ptr(), cph.data_ptr(), C, n_blocks, Rc, Rs, blkp, N,
         ctypes.cast(consts, ctypes.c_void_p), len(BOC_CONSTS), stream)
     if rc != 0:
         msg = built.lib.track_boc_fused_error_string(rc).decode()
@@ -713,7 +804,7 @@ def _dual_lib():
     fn = built.lib.track_chunk_dual_fused_cuda
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 9 + [i] * 6
+        fn.argtypes = ([p, ctypes.c_longlong] + [p] * 9 + [i] * 5
                        + [p, i, p])
         fn.restype = ctypes.c_int
         _bind_info_and_errors(built.lib, "track_dual_fused")
@@ -760,14 +851,14 @@ def track_chunk_dual_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
     consts = (ctypes.c_float * len(DUAL_CONSTS))(
         *(k[name] for name in DUAL_CONSTS))
     _check_aligned16("tab", tab)
-    N, S = cluster_split(C, blkp, _sm_count(dev))
+    N, _ = cluster_split(C, blkp, _sm_count(dev))
     built = _dual_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = built.lib.track_chunk_dual_fused_cuda(
         chunk.data_ptr(), chunk.shape[0], tab.data_ptr(), pos0.data_ptr(),
         finit.data_ptr(), cinit.data_ptr(), carrbase.data_ptr(),
         out.data_ptr(), ffin.data_ptr(), pos.data_ptr(), cph.data_ptr(),
-        C, n_blocks, R, blkp, N, S, ctypes.cast(consts, ctypes.c_void_p),
+        C, n_blocks, R, blkp, N, ctypes.cast(consts, ctypes.c_void_p),
         len(DUAL_CONSTS), stream)
     if rc != 0:
         msg = built.lib.track_dual_fused_error_string(rc).decode()

@@ -87,9 +87,10 @@ class ScanFamilyEngine(_Base):
         self.name = resolve_engine(mode)
         from gnsstpu_torch.ops import code_tables
 
-        if self.name == "fused":
-            from gnsstpu_torch.tracking.fused import fused_code_table
-            self._tab = fused_code_table(self.sig, cfg.track)
+        if self.name == "fused":     # K1's int8 rows [.., R, bp]
+            from gnsstpu_torch.tracking.fused import (fused_code_table,
+                                                      fused_tap_rows)
+            self._tab = fused_tap_rows(fused_code_table(self.sig, cfg.track))
         elif self.name == "table":
             self._tab = code_tables.phase_row_table(
                 self.sig.signal, self.sig.fs, self.sig.code_freq,
@@ -101,7 +102,10 @@ class ScanFamilyEngine(_Base):
         from gnsstpu_torch.tracking import scan as tscan
 
         cb, ia = tscan.channel_consts(self.sig, self.cfg.track, [1] * C)
-        return {"codes": np.zeros((C,) + self._tab.shape[1:], np.float32),
+        # The fused engine's tap rows are int8, the scan engines' codes f32.
+        return {"codes": np.zeros((C,) + self._tab.shape[1:],
+                                  np.int8 if self.name == "fused"
+                                  else np.float32),
                 "carr_base": cb, "inv_aid": ia}
 
     def write_slot(self, bank: dict, idx: int, prn: int) -> None:

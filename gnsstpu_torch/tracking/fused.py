@@ -7,7 +7,8 @@ tracking.scan.make_tracker, so the engines and the ChannelManager switch
 engines by name. It packs TrackState into K1's finit lanes (_F_*) and
 unpacks K1's out lanes (O_*) into TrackOut, as the reference does. The
 reference pads the chunk by 256 lanes for the TPU's aligned window reads;
-the CUDA kernel reads at the cursor directly and needs no pad.
+the CUDA kernel reads at the cursor directly and needs no pad. codes_tab
+is K1's int8 tap table (fused_tap_rows of fused_code_table).
 
 E/L spacing is fractional: trk.el_spacing chips, realized at
 1/phases_per_chip chip by picking early/late phase-table rows.
@@ -49,6 +50,16 @@ def fused_code_table(sig: SignalConfig, trk: TrackConfig, prns=None,
     if prns is None:
         return tab
     return np.stack([tab[p - 1] for p in prns])
+
+
+def fused_tap_rows(tab: np.ndarray) -> np.ndarray:
+    """K1's tap table from fused_code_table's f32 [.., R, blkp]: the same
+    +-1 values as int8, each row padded with zeros to plane_stride(blkp)
+    lanes, so every 16-tap vector of a row is 16-byte aligned."""
+    blkp = tab.shape[-1]
+    out = np.zeros(tab.shape[:-1] + (tk.plane_stride(blkp),), np.int8)
+    out[..., :blkp] = tab
+    return out
 
 
 def kernel_kwargs(sig: SignalConfig, trk: TrackConfig, *, n_blocks: int,

@@ -7,6 +7,11 @@ held to test_track_kernel.py's tolerances: block geometry and cursors
 exact, accumulators rtol 2e-3 / atol 2, carrier Doppler 0.05 Hz, code
 remainder 5e-4 chip, carrier phase within one LSB step flip per block.
 
+K1's tap table is int8 (fused_tap_rows): the reference's +-1 rows on
+lanes [0, blkp), zeros up to plane_stride(blkp). K1 is held to the
+reference at GPS L1 C/A 2.048 Msps and at BeiDou B1I 4.096 Msps, whose
+4,098-sample blocks the first CUDA K1 refused.
+
 K2's and K3's cluster split (cluster_split) is checked here for the
 channel counts and block lengths the port runs and beyond.
 
@@ -35,26 +40,31 @@ from torch_port import to_port
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 TRK = TrackConfig(dll_bw=1.0, el_spacing=0.3)
 TSIG, TTRK = to_port(SIG), to_port(TRK)
+# BeiDou B1I live (tests/test_live_families.py): blkp 4,098.
+BSIG = SignalConfig(signal="beidou_b1i", if_freq=0.0, fs=4.096e6,
+                    code_freq=2.046e6, code_length=2046, complex_iq=True)
+BTRK = TrackConfig(dll_bw=1.5, pll_bw=25.0, fll_bw=150.0,
+                   aid_div=1561.098e6 / 2.046e6)
 CPU = torch.device("cpu")
 ACCS = ("ie", "qe", "ip", "qp", "il", "ql")
 
 
-def _setup(C, n_blocks):
+def _setup(C, n_blocks, sig=SIG, trk=TRK):
     prns = [3, 9, 17, 25, 5, 12, 22, 28, 31, 7][:C]
     sats = [SatParams(prn=p, doppler_hz=400.0 * i - 600.0,
                       code_phase_chips=50.0 * i + 11.0, cn0_dbhz=49.0)
             for i, p in enumerate(prns)]
-    chunk = np.asarray(IFSimulator(SIG, sats, noise_sigma=1.0,
+    chunk = np.asarray(IFSimulator(sig, sats, noise_sigma=1.0,
                                    seed=4).generate(n_blocks + 3))
-    tab = j_fused_code_table(SIG, TRK, prns)
-    cb, ia = jscan.channel_consts(SIG, TRK, prns)
-    spchip = SIG.fs / SIG.code_freq
+    tab = j_fused_code_table(sig, trk, prns)
+    cb, ia = jscan.channel_consts(sig, trk, prns)
+    spchip = sig.fs / sig.code_freq
     cp = np.array([int(round(s.code_phase_chips * spchip)) for s in sats])
     dp = np.array([s.doppler_hz + 37.0 for s in sats], np.float32)
     return prns, chunk, tab, cb, ia, cp, dp
 
 
-def _compare(got_state, got_out, ref_state, ref_out, n_blocks):
+def _compare(got_state, got_out, ref_state, ref_out, n_blocks, sig=SIG):
     np.testing.assert_array_equal(got_out.blksize.numpy(),
                                   np.asarray(ref_out.blksize))
     np.testing.assert_array_equal(got_state.corr.sample_pos.numpy(),
@@ -62,7 +72,7 @@ def _compare(got_state, got_out, ref_state, ref_out, n_blocks):
     d = (u32_numpy(got_state.corr.carr_phase_u32).astype(np.int64)
          - np.asarray(ref_state.corr.carr_phase_u32).astype(np.int64))
     d = (d + 2 ** 31) % 2 ** 32 - 2 ** 31
-    assert np.max(np.abs(d)) <= 4 * n_blocks * (SIG.samples_per_code + 2)
+    assert np.max(np.abs(d)) <= 4 * n_blocks * (sig.samples_per_code + 2)
     for name in ACCS:
         np.testing.assert_allclose(getattr(got_out, name).numpy(),
                                    np.asarray(getattr(ref_out, name)),
@@ -75,43 +85,119 @@ def _compare(got_state, got_out, ref_state, ref_out, n_blocks):
                                rtol=0, atol=5e-4)
 
 
-@pytest.mark.parametrize("C,n_blocks", [(4, 12), (9, 6)])
-def test_port_fused_matches_reference_fused(C, n_blocks):
-    prns, chunk, tab, cb, ia, cp, dp = _setup(C, n_blocks)
+def _port_vs_reference(C, n_blocks, sig, trk):
+    """The port's fused tracker on K1's int8 rows (the plain twin on the
+    CPU) against the reference's Pallas kernel in interpret mode."""
+    prns, chunk, tab, cb, ia, cp, dp = _setup(C, n_blocks, sig, trk)
     st0 = jax.tree.map(jnp.asarray, jscan.TrackState.init(cp, dp))
-    ref = j_make_fused(SIG, TRK, n_blocks=n_blocks, interpret=True)
+    ref = j_make_fused(sig, trk, n_blocks=n_blocks, interpret=True)
     ref_state, ref_out = ref(jnp.asarray(chunk), jnp.asarray(tab),
                              (jnp.asarray(cb), jnp.asarray(ia)), st0)
 
-    np.testing.assert_array_equal(tfused.fused_code_table(TSIG, TTRK, prns),
+    tsig, ttrk = to_port(sig), to_port(trk)
+    np.testing.assert_array_equal(tfused.fused_code_table(tsig, ttrk, prns),
                                   tab)
-    port = tfused.make_fused_tracker(TSIG, TTRK, n_blocks=n_blocks)
+    rows = tfused.fused_tap_rows(tfused.fused_code_table(tsig, ttrk, prns))
+    port = tfused.make_fused_tracker(tsig, ttrk, n_blocks=n_blocks)
     before = tk.LAUNCHES["track_chunk_fused"]
     got_state, got_out = port(
-        torch.tensor(chunk), torch.tensor(tab),
+        torch.tensor(chunk), torch.tensor(rows),
         (u32_tensor(cb, CPU), torch.tensor(ia)),
         tscan.TrackState.init(cp, dp, device=CPU))
     # The plain twin ran: no kernel launch was counted.
     assert tk.LAUNCHES["track_chunk_fused"] == before
-    _compare(got_state, got_out, ref_state, ref_out, n_blocks)
+    _compare(got_state, got_out, ref_state, ref_out, n_blocks, sig)
+
+
+@pytest.mark.parametrize("C,n_blocks", [(4, 12), (9, 6)])
+def test_port_fused_matches_reference_fused(C, n_blocks):
+    _port_vs_reference(C, n_blocks, SIG, TRK)
+
+
+def test_port_fused_matches_reference_beidou_4096():
+    """BeiDou B1I at 4.096 Msps: 4,098-sample blocks."""
+    assert BSIG.samples_per_code + 2 == 4098
+    _port_vs_reference(2, 4, BSIG, BTRK)
+
+
+@pytest.mark.parametrize("sig,trk", [(SIG, TRK), (BSIG, BTRK)])
+def test_fused_tap_rows_are_the_reference_table_in_int8(sig, trk):
+    prns = [3, 17, 30]
+    ref = j_fused_code_table(sig, trk, prns)
+    blkp = sig.samples_per_code + 2
+    rows = tfused.fused_tap_rows(
+        tfused.fused_code_table(to_port(sig), to_port(trk), prns))
+    assert rows.dtype == np.int8
+    assert rows.shape == ref.shape[:2] + (tk.plane_stride(blkp),)
+    assert rows.shape[-1] % 128 == 0
+    np.testing.assert_array_equal(rows[..., :blkp], ref)
+    assert set(np.unique(rows[..., :blkp])) == {-1, 1}
+    assert not rows[..., blkp:].any()
+
+
+def _meta_args(C, R, lanes, dtype):
+    meta = torch.device("meta")
+    return (torch.empty((4096, 2), device=meta),
+            torch.empty((C, R, lanes), dtype=dtype, device=meta),
+            torch.empty((C,), dtype=torch.int32, device=meta),
+            torch.empty((C, tk.NF), device=meta),
+            torch.empty((C,), dtype=torch.int64, device=meta),
+            torch.empty((C,), dtype=torch.int64, device=meta))
+
+
+def _fused_kw(blkp):
+    return dict(n_blocks=1, blkp=blkp, code_length=1023, phases_per_chip=64,
+                spacing=0.3, span_chips=1.0, base_code_step=0.5, fs=SIG.fs,
+                coefs=(1.0,) * 5)
 
 
 def test_wrapper_refuses_other_devices():
     """The wrapper takes the plain twin for CPU tensors only; anything
     else must launch the kernel or raise, never run elsewhere."""
     C, blkp = 2, SIG.samples_per_code + 2
-    meta = torch.device("meta")
-    args = (torch.empty((4096, 2), device=meta),
-            torch.empty((C, 128, blkp), device=meta),
-            torch.empty((C,), dtype=torch.int32, device=meta),
-            torch.empty((C, tk.NF), device=meta),
-            torch.empty((C,), dtype=torch.int64, device=meta),
-            torch.empty((C,), dtype=torch.int64, device=meta))
+    args = _meta_args(C, 128, tk.plane_stride(blkp), torch.int8)
     with pytest.raises(ValueError, match="unsupported device"):
-        tk.track_chunk_fused(
-            *args, n_blocks=1, blkp=blkp, code_length=1023,
-            phases_per_chip=64, spacing=0.3, span_chips=1.0,
-            base_code_step=0.5, fs=SIG.fs, coefs=(1.0,) * 5)
+        tk.track_chunk_fused(*args, **_fused_kw(blkp))
+
+
+@pytest.mark.parametrize("blkp,lanes,dtype,err,match", [
+    (tk.MAX_BLKP + 1, tk.plane_stride(tk.MAX_BLKP + 1), torch.int8,
+     ValueError, "MAX_BLKP = 32768"),
+    (2050, 2050, torch.float32, TypeError, "tab dtype"),
+    (2050, 2050, torch.int8, ValueError, "tab shape"),
+])
+def test_wrapper_refuses_what_k1_does_not_take(blkp, lanes, dtype, err,
+                                               match):
+    """Blocks past MAX_BLKP, f32 tables and unpadded rows raise before any
+    launch, on every device."""
+    with pytest.raises(err, match=match):
+        tk.track_chunk_fused(*_meta_args(2, 128, lanes, dtype),
+                             **_fused_kw(blkp))
+
+
+def test_engine_banks():
+    """The fused engine's slot bank holds K1's int8 rows [C, R, bp]; the
+    gather and table engines keep f32 codes."""
+    from gnsstpu.config import ReceiverConfig
+    from gnsstpu_torch.tracking.engines import ScanFamilyEngine
+
+    cfg = to_port(ReceiverConfig(signal=SIG, track=TRK, n_channels=3))
+    blkp = SIG.samples_per_code + 2
+    shapes = {"fused": (3, 128, tk.plane_stride(blkp)),
+              "table": (3, 256, blkp), "gather": (3, 1025)}
+    for mode, shape in shapes.items():
+        eng = ScanFamilyEngine(cfg, mode)
+        bank = eng.new_bank(3)
+        eng.write_slot(bank, 1, 17)
+        assert bank["codes"].shape == shape, mode
+        assert bank["codes"].dtype == (np.int8 if mode == "fused"
+                                       else np.float32), mode
+        assert set(np.unique(bank["codes"][1])) <= {-1, 0, 1}
+    ref = j_fused_code_table(SIG, TRK, [17])[0]
+    fused = ScanFamilyEngine(cfg, "fused")
+    bank = fused.new_bank(2)
+    fused.write_slot(bank, 0, 17)
+    np.testing.assert_array_equal(bank["codes"][0, :, :blkp], ref)
 
 
 @pytest.mark.parametrize("blkp", [16802, 24002])
@@ -151,20 +237,30 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_twin(cuda_device):
+@pytest.mark.parametrize("sig,trk", [(SIG, TRK), (BSIG, BTRK)])
+def test_cuda_kernel_matches_plain_twin(cuda_device, sig, trk):
+    """K1 on the card against its twin at GPS (blkp 2,050) and BeiDou
+    4.096 Msps (blkp 4,098), and two launches bit-identical."""
     C, n_blocks = 4, 12
-    prns, chunk, tab, cb, ia, cp, dp = _setup(C, n_blocks)
-    port = tfused.make_fused_tracker(TSIG, TTRK, n_blocks=n_blocks)
+    prns, chunk, tab, cb, ia, cp, dp = _setup(C, n_blocks, sig, trk)
+    rows = tfused.fused_tap_rows(tab)
+    port = tfused.make_fused_tracker(to_port(sig), to_port(trk),
+                                     n_blocks=n_blocks)
     res = {}
-    for dev in (CPU, cuda_device):
+    for dev in (CPU, cuda_device, cuda_device):
         before = tk.LAUNCHES["track_chunk_fused"]
         st, out = port(torch.tensor(chunk, device=dev),
-                       torch.tensor(tab, device=dev),
+                       torch.tensor(rows, device=dev),
                        (u32_tensor(cb, dev), torch.tensor(ia, device=dev)),
                        tscan.TrackState.init(cp, dp, device=dev))
         assert tk.LAUNCHES["track_chunk_fused"] == before + (
             dev.type == "cuda")
-        res[dev.type] = jax.tree.map(lambda t: t.cpu(), (st, out))
+        got = jax.tree.map(lambda t: t.cpu(), (st, out))
+        if dev.type in res:     # the second launch: bit-identical
+            for a, b in zip(jax.tree.leaves(got),
+                            jax.tree.leaves(res[dev.type])):
+                assert torch.equal(a, b)
+        res[dev.type] = got
     (gs, go), (rs, ro) = res["cuda"], res["cpu"]
     np.testing.assert_array_equal(go.blksize.numpy(), ro.blksize.numpy())
     np.testing.assert_array_equal(gs.corr.sample_pos.numpy(),
@@ -183,7 +279,8 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(TypeError, match="pos0 dtype"):
         tk.track_chunk_fused(
             torch.zeros((8192, 2), device=d),
-            torch.zeros((C, 128, blkp), device=d),
+            torch.zeros((C, 128, tk.plane_stride(blkp)), dtype=torch.int8,
+                        device=d),
             torch.zeros((C,), dtype=torch.int64, device=d),
             torch.zeros((C, tk.NF), device=d),
             torch.zeros((C,), dtype=torch.int64, device=d),
