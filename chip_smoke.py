@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three live receiver paths once on the card, through the
+Drives the port's five live receiver paths once on the card, through the
 entry points a user calls, each with a sky and signal made by the port's
 simulator from a fixed seed:
   * GPS L1 C/A at the benchmark configuration (bench.py::bench_manager):
@@ -23,7 +23,23 @@ simulator from a fixed seed:
     48 dB-Hz, sm2 wire on the card, 500 ms epochs, 2-epoch superepochs,
     prefetch, compact readback, the navigator armed (L3OC has no live
     navigation: it reports so once), over 9 s of signal; it runs kernel
-    K3, and the data bits come back from the data prompts.
+    K3, and the data bits come back from the data prompts;
+  * BeiDou B1I (beidou_b1i_live_12ch, tests/test_live_families.py's live
+    BeiDou receiver widened to 12 slots): 4.096 Msps complex, the 7
+    satellites of beidou_constellation above 15 degrees plus 2 absent
+    PRNs, 48 dB-Hz, 100 ms epochs, 4-epoch superepochs, sm2 wire on the
+    card, prefetch, compact readback, 2 s reacquisition and the navigator
+    (D1 decode + LSQ PVT), over 40 s of signal (a slot searched again
+    at 2 s still meets a whole D1 frame); it runs K1 at blkp
+    4,098;
+  * GLONASS L1OF (glonass_l1of_live_12ch, tests/test_glonass.py's live
+    receiver at its 8.192 Msps front end, 12 slots): 6 satellites on
+    their frequency channels plus 2 absent channels, 48 dB-Hz, FDMA
+    acquisition (one code row against the 14-channel x Doppler grid) at
+    the cold start and on the superepoch chunks every 2 s, 100 ms epochs,
+    4-epoch superepochs, sm2 wire on the card, prefetch, compact readback
+    and the navigator (string decode + LSQ PVT), over 12 s of signal; it
+    runs K1 at blkp 8,194.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: a CUDA card is required; its name and power limit;
@@ -75,7 +91,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
  13. the GLONASS L3OC main path with its end-to-end checks (every sky
      satellite tracked, Doppler and C/N0, overlay sync, the data bits
      bit-exact, K3 launched and K1 / K2 not) and K3's share of the wall;
-then the kernel record, the nvidia-smi line and the result line.
+ 14. K1 alone (no twin) at the BeiDou and GLONASS launch shapes, C=12 x
+     100 blocks (100 ms epochs) and x 500, at blkp 4,098 and 8,194, each
+     beside its bound;
+ 15. the BeiDou B1I main path with its end-to-end checks (every sky SV's
+     D1 ephemeris, >= 4 fixes with mean 3D error < 30 m, live channels
+     >= sky - 1, no absent PRN confirmed, K1 and neither K2 nor K3, no
+     JAX, realtime factor >= 1) and K1's share of the wall;
+ 16. the GLONASS L1OF main path with the same checks (every string
+     ephemeris, >= 8 fixes with mean 3D error < 25 m, at least one
+     on-chunk FDMA search after the cold start), and the time and device
+     memory of one on-chunk FDMA search at its configuration;
+ 17. the manager's weak tier (tests/test_pipeline.py:270-312: a GLONASS
+     noncoherent search longer than one chunk summed on the card across
+     chunks; the late SV found with one host-path search, at epoch 0) and
+     checkpoint (tests/test_runtime.py:252-325: save, restore into a new
+     manager, resume with no channel start, carrier-phase accumulators
+     equal to an uninterrupted run's);
+ 18. K1's launches on each of its three live paths;
+then the kernel record (K1's launches summed over its three paths), the
+nvidia-smi line and the result line.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s (the chunk,
 the tap rows this run's data selects, state and outputs, each once) and
@@ -89,10 +124,13 @@ run's blocks cover. The tap rows of all three are int8, one byte per tap.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,12 +146,16 @@ from gnsstpu_torch.ops import fft_acquire, nco
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.runtime import OnlineNavigator, Telemetry
 from gnsstpu_torch.runtime.manager import ChannelManager
-from gnsstpu_torch.runtime.sources import DevicePackedArraySource
+from gnsstpu_torch.runtime.sources import (ArraySource,
+                                           DevicePackedArraySource)
 from gnsstpu_torch.sim import IFSimulator, SatParams
 from gnsstpu_torch.signals import galileo_e1, glonass_l3
 from gnsstpu_torch.signals.registry import get_signal
-from gnsstpu_torch.sim.scenario import (bench_constellation,
+from gnsstpu_torch.sim.scenario import (beidou_constellation,
+                                        bench_constellation,
+                                        build_scenario_glonass,
                                         galileo_constellation,
+                                        make_glonass_constellation,
                                         position_error_m)
 from gnsstpu_torch.tracking import boc as tboc
 from gnsstpu_torch.tracking import dual as tdual
@@ -130,7 +172,9 @@ K1_REPLACES = "gnsstpu/ops/track_kernel.py:274"
 # at 16.384 Msps (blkp 16,386, past what K1's double buffer holds).
 BSIG = SignalConfig(signal="beidou_b1i", if_freq=0.0, fs=4.096e6,
                     code_freq=2.046e6, code_length=2046, complex_iq=True)
-BTRK = TrackConfig(dll_bw=1.5, pll_bw=25.0, fll_bw=150.0,
+# BeiDou's loop takes the flip-invariant FLL (its NH(20) code flips the
+# symbol every block); K1's parity at blkp 4,098 runs it.
+BTRK = TrackConfig(dll_bw=1.5, pll_bw=25.0, fll_bw=150.0, fll_disc="atan",
                    aid_div=1561.098e6 / 2.046e6)
 OSIG = SignalConfig(signal="glonass_l1of", if_freq=0.0, fs=8.192e6,
                     code_freq=0.511e6, code_length=511, fdma_step=562.5e3,
@@ -326,19 +370,41 @@ def k1_compare(C: int, n_blocks: int, device, sig=SIG, trk=TRK) -> tuple:
                   "rem_code_phase": (tk.O_REM, 5e-4)},
         max_lsb=4 * n_blocks * kw["blkp"])
 
+    dev["blkp"] = kw["blkp"]
+    return dev, k1_bound(inputs, ro)
+
+
+def k1_bound(inputs, out: np.ndarray) -> tuple:
+    """K1's bound for one launch on inputs (args, kw) whose out lanes are
+    `out` (numpy): the chunk, the tap rows the blocks select, state and
+    outputs once; 18 flops per sample the blocks cover."""
+    args, kw = inputs
     chunk, tab, _, finit = args[:4]
     k = tk._consts(**{n: kw[n] for n in ("code_length", "phases_per_chip",
                                          "spacing", "span_chips",
                                          "base_code_step", "fs",
                                          "coefs")})
-    rows = rows_used(finit[:, tk._F_REM].cpu().numpy(), ro[..., tk.O_REM],
+    rows = rows_used(finit[:, tk._F_REM].cpu().numpy(), out[..., tk.O_REM],
                      k["row_off"], kw["phases_per_chip"], tab.shape[1])
-    n_rows = sum(len(np.unique(rows[c])) for c in range(C))
-    samples = float(ro[..., tk.O_BLKSIZE].sum())
-    dev["blkp"] = kw["blkp"]
+    n_rows = sum(len(np.unique(r)) for r in rows)
+    samples = float(out[..., tk.O_BLKSIZE].sum())
     n_bytes = (chunk.numel() * 4 + n_rows * kw["blkp"]
-               + 2 * finit.numel() * 4 + ro.size * 4)
-    return dev, bound(n_bytes, 18.0 * samples)
+               + 2 * finit.numel() * 4 + out.size * 4)
+    return bound(n_bytes, 18.0 * samples)
+
+
+def k1_alone(C: int, n_blocks: int, device, sig, trk) -> dict:
+    """K1 alone (no twin: at blkp 8,194 it takes seconds per call) at one
+    launch shape of a live path: ms per launch (CUDA events) and the
+    bound from the kernel's own outputs."""
+    inputs = k1_inputs(C, n_blocks, device, sig, trk)
+    args, kw = inputs
+    out = tk.track_chunk_fused(*args, **kw)[0].cpu().numpy()
+    ms = kernel_times(inputs, tk.track_chunk_fused, None)[0]
+    b_ms, b_by = k1_bound(inputs, out)
+    return {"blkp": kw["blkp"], "ms": ms,
+            "us_per_block": 1e3 * ms / n_blocks, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def kernel_times(inputs, kernel, twin, reps: int = 20) -> tuple:
@@ -454,18 +520,21 @@ def acq_search_ms(device, reps: int = 20) -> float:
 
 class _Collector:
     """PVT records and per-stage host wall time (task_health) of the
-    measured window, and every event of the run, from the telemetry
-    bus."""
+    measured window, and every event and host-path search (its epoch) of
+    the run, from the telemetry bus."""
 
     def __init__(self):
         self.pvt = []
         self.stages = {}
         self.events = []
+        self.host_searches = []
         self.enabled = False
 
     def __call__(self, rec):
         if rec.get("type") == "event":
             self.events.append(rec)
+        if rec.get("stage") == "acquire":
+            self.host_searches.append(rec["epoch_ms"])
         if not self.enabled:
             return
         if rec.get("type") == "pvt":
@@ -476,6 +545,25 @@ class _Collector:
                                          + rec["wall_s"])
 
 
+def refused_modules() -> list:
+    """The jax / gnsstpu modules this process has loaded (the port loads
+    none)."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "gnsstpu"))
+
+
+def device_signal(sig, sats, n_ms: int, seed: int, device,
+                  piece_ms: int | None = None) -> DevicePackedArraySource:
+    """n_ms of signal from the port's simulator on the card, in one call
+    or in piece_ms pieces (bounded device memory), as a 2-bit sm2 source
+    resident on the card."""
+    sim = IFSimulator(sig, sats, noise_sigma=1.0, seed=seed, device=device)
+    piece_ms = piece_ms or n_ms
+    buf = np.concatenate([sim.generate(min(piece_ms, n_ms - ms0), ms0)
+                          for ms0 in range(0, n_ms, piece_ms)])
+    return DevicePackedArraySource(buf, fmt="sm2", scale=1.0, device=device)
+
+
 def gps_main_path(device) -> dict:
     """The bench_manager configuration through the port's manager."""
     seconds, n_channels, epoch_ms, sync_every = 44, 12, 500, 8
@@ -483,10 +571,7 @@ def gps_main_path(device) -> dict:
     sats, prns, recv = bench_constellation(SIG, n_channels - 1,
                                            duration_s=seconds + 1.0)
     t0 = time.perf_counter()
-    buf = IFSimulator(SIG, sats, noise_sigma=1.0, seed=3,
-                      device=device).generate(n_ms + 800)
-    src = DevicePackedArraySource(buf, fmt="sm2", scale=1.0, device=device)
-    del buf
+    src = device_signal(SIG, sats, n_ms + 800, 3, device)
     setup_s = time.perf_counter() - t0
     absent = [p for p in range(1, 33) if p not in prns][:2]
     pool = prns + absent
@@ -618,10 +703,7 @@ def galileo_main_path(device) -> dict:
     sats, prns, recv, _ = galileo_constellation(
         GSIG, 8, duration_s=seconds + 1.0, cn0_dbhz=48.0)
     t0 = time.perf_counter()
-    buf = IFSimulator(GSIG, sats, noise_sigma=1.0, seed=23,
-                      device=device).generate(n_ms + 800)
-    src = DevicePackedArraySource(buf, fmt="sm2", scale=1.0, device=device)
-    del buf
+    src = device_signal(GSIG, sats, n_ms + 800, 23, device)
     setup_s = time.perf_counter() - t0
     absent = [p for p in range(1, galileo_e1.NUM_PRN + 1)
               if p not in prns][:2]
@@ -823,11 +905,7 @@ def l3_main_path(device, k3_ms: float) -> dict:
            + rng.uniform(0.0, 1000.0, len(prns)))
     sats, bits = l3_sky(prns, dopp, rates, cps, n_ms + 20, seed=32)
     t0 = time.perf_counter()
-    sim = IFSimulator(LSIG, sats, noise_sigma=1.0, seed=33, device=device)
-    buf = np.concatenate([sim.generate(1000, ms0)
-                          for ms0 in range(0, n_ms, 1000)])
-    src = DevicePackedArraySource(buf, fmt="sm2", scale=1.0, device=device)
-    del buf
+    src = device_signal(LSIG, sats, n_ms, 33, device, piece_ms=1000)
     setup_s = time.perf_counter() - t0
     pool = prns + absent
     cfg = ReceiverConfig(
@@ -900,6 +978,321 @@ def l3_main_path(device, k3_ms: float) -> dict:
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
+
+
+def k1_family_path(device, *, sig, trk, acq, sats, sky, absent, recv,
+                   seconds: float, seed: int, retry_ms: int,
+                   confirm_epochs: int, reacq_period_ms: int,
+                   k1_ms: float, epoch_ms: int = 100,
+                   sync_every: int = 4) -> dict:
+    """One of K1's live families through the port's manager, as the
+    Galileo path: 12 slots over the sky's satellites plus the absent
+    PRNs in the pool, the signal resident on the card (sm2), prefetch,
+    compact readback, the navigator armed, a warm-up of two superepochs,
+    then the rest measured. k1_ms: K1's time per launch at this path's
+    launch shape, for its share of the wall. Counts the on-chunk
+    searches (reacquisition riding a superepoch's chunk)."""
+    n_ms = int(round(seconds * 1000))
+    t0 = time.perf_counter()
+    src = device_signal(sig, sats, n_ms + 400, seed, device, piece_ms=4000)
+    setup_s = time.perf_counter() - t0
+    pool = list(sky) + list(absent)
+    cfg = ReceiverConfig(
+        signal=sig, acq=dataclasses.replace(acq, prn_list=tuple(pool)),
+        track=trk,
+        nav=NavConfig(sol_period_ms=500, elevation_mask_deg=10.0,
+                      use_tropo=False),
+        n_channels=12)
+    navr = OnlineNavigator(sig, cfg.nav, retry_ms=retry_ms, mode="lsq")
+    coll = _Collector()
+    tlm = Telemetry(sink=None)
+    tlm.subscribe(coll)
+    warm_ms = 2 * sync_every * epoch_ms
+    tk.reset_launches()
+    mgr = ChannelManager(
+        src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
+        reacq_period_ms=reacq_period_ms, confirm_epochs=confirm_epochs,
+        sync_every=sync_every, navigator=navr, prn_pool=pool,
+        prefetch=True, readback="compact", engine="auto")
+    searches = []
+    chunk_search = mgr._chunk_search
+
+    def counted(chunk, base, need_len):
+        out = chunk_search(chunk, base, need_len)
+        if out[0] is not None:
+            searches.append(base)
+        return out
+
+    mgr._chunk_search = counted
+    mgr.run(warm_ms)
+    k1_warm = tk.LAUNCHES["track_chunk_fused"]
+    meas_ms = n_ms - warm_ms - 2 * epoch_ms
+    coll.enabled = True
+    t0 = time.perf_counter()
+    recs = mgr.run(meas_ms)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    coll.enabled = False
+    launches = dict(tk.LAUNCHES)
+    wall = t1 - t0
+    k1_meas = launches["track_chunk_fused"] - k1_warm
+    err = [float(np.linalg.norm([s["x"] - recv[0], s["y"] - recv[1],
+                                 s["z"] - recv[2]]))
+           for s in navr.solutions]
+    return {
+        "realtime_factor_overall": meas_ms / 1000.0 / wall,
+        "measured_ms": meas_ms,
+        "wall_s": wall,
+        "signal_setup_s": setup_s,
+        "engine": mgr.engine,
+        "blkp": sig.samples_per_code + 2,
+        "sky_prns": sorted(sky),
+        "absent_prns": list(absent),
+        "decoded_prns": sorted(navr.decoded),
+        "confirmed_prns": sorted({e["prn"] for e in coll.events
+                                  if e["what"] == "channel_confirmed"}),
+        "live_channels_at_end": int(sum(1 for p in recs[-1].prn if p)),
+        "pvt_solutions": len(navr.solutions),
+        "mean_3d_err_m": float(np.mean(err)) if err else None,
+        "on_chunk_searches": len(searches),
+        "host_searches": coll.host_searches,
+        "k1_launches": launches["track_chunk_fused"],
+        "k1_launches_measured": k1_meas,
+        "k1_share_of_wall": k1_meas * k1_ms * 1e-3 / wall,
+        "k2_launches": launches["track_chunk_boc_fused"],
+        "k3_launches": launches["track_chunk_dual_fused"],
+        "stage_wall_s": {k: round(v, 4) for k, v in
+                         sorted(coll.stages.items())},
+    }, mgr
+
+
+def k1_family_checks(name: str, res: dict, min_fixes: int,
+                     max_err_m: float) -> None:
+    """The live checks of a K1 family path; raises on a failure."""
+    refused = refused_modules()
+    sky = res["sky_prns"]
+    checks = {
+        "every sky SV's ephemeris decoded":
+            set(sky) <= set(res["decoded_prns"]),
+        f"pvt_solutions >= {min_fixes}": res["pvt_solutions"] >= min_fixes,
+        f"mean_3d_err_m < {max_err_m:g}": (
+            res["mean_3d_err_m"] is not None
+            and res["mean_3d_err_m"] < max_err_m),
+        "live_channels_at_end >= sky - 1":
+            res["live_channels_at_end"] >= len(sky) - 1,
+        "no absent PRN confirmed":
+            not set(res["confirmed_prns"]) & set(res["absent_prns"]),
+        "k1_launches > 0, K2 and K3 none": (res["k1_launches"] > 0
+                                            and res["k2_launches"] == 0
+                                            and res["k3_launches"] == 0),
+        "no jax or gnsstpu module loaded": not refused,
+        "realtime_factor_overall >= 1": res["realtime_factor_overall"] >= 1,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name} checks failed: {failed} "
+                             f"(modules: {refused[:5]})")
+
+
+def beidou_main_path(device, k1_ms: float) -> tuple:
+    """beidou_b1i_live_12ch: tests/test_live_families.py's live BeiDou
+    receiver widened to 12 slots: every satellite of
+    beidou_constellation above 15 degrees (the reference's 5 and more),
+    48 dB-Hz, 2 absent PRNs in the pool, 4.096 Msps (K1 at blkp 4,098),
+    40 s of signal. The reference's BD_NMS + 8 s (28.6 s) holds
+    subframes 1-3 (2-20 s) only for a channel tracked from the start. A
+    1 ms search can land one 125 Hz bin off; this loop's FLL (k3 = T *
+    fll_bw / 0.25) then corrects ~0.1% of the error per block, the slot
+    fails its 1.2 s confirmation and is searched again at the next 2 s
+    reacquisition, after subframe 1 began. Its ephemeris then needs the
+    next frame's subframe 1 (32-38 s). gnsstpu's own receiver does the
+    same on this signal (tools/beidou_pull_in.py)."""
+    seconds = 40.0
+    sats, sky, recv, _ = beidou_constellation(BSIG, None, duration_s=seconds,
+                                              cn0_dbhz=48.0)
+    absent = [p for p in range(1, get_signal(BSIG.signal).num_prn + 1)
+              if p not in sky][:2]
+    acq = AcqConfig(doppler_band=12e3, coherent_ms=1, threshold=2.0,
+                    doppler_step=125.0)
+    return k1_family_path(
+        device, sig=BSIG, trk=BTRK, acq=acq, sats=sats, sky=sky,
+        absent=absent, recv=recv, seconds=seconds, seed=17, retry_ms=500,
+        confirm_epochs=12, reacq_period_ms=2000, k1_ms=k1_ms)
+
+
+#: The live GLONASS sky of tests/test_glonass.py:238-240.
+GFIX_RECV = np.array([3427947.0, 603774.0, 5326967.0])
+GFIX_TB = 675                     # 11:15:00 Moscow-day time
+GFIX_T0 = GFIX_TB * 60 + 30.0     # string 1 data start
+
+
+def glonass_main_path(device, k1_ms: float) -> tuple:
+    """glonass_l1of_live_12ch: tests/test_glonass.py's live GLONASS
+    receiver at the 8.192 Msps front end of tests/test_glonass.py:19 (K1
+    at blkp 8,194), widened to 12 slots: 6 satellites on their
+    frequency channels, 48 dB-Hz, registry PRNs 1 and 13 absent in the
+    pool, 2 s reacquisition (the on-chunk FDMA search runs on the card),
+    12 s of signal."""
+    seconds = 12.0
+    gephs = make_glonass_constellation(GFIX_RECV, GFIX_TB, n=6)
+    sats, _ = build_scenario_glonass(OSIG, gephs, GFIX_RECV, GFIX_T0,
+                                     duration_s=seconds + 0.4,
+                                     cn0_dbhz=48.0, n_strings=6)
+    acq = AcqConfig(doppler_band=14e3, coherent_ms=2, threshold=2.5,
+                    fine_doppler_ms=10)
+    return k1_family_path(
+        device, sig=OSIG, trk=OTRK, acq=acq, sats=sats, sky=sorted(gephs),
+        absent=[1, 13], recv=GFIX_RECV, seconds=seconds, seed=31,
+        retry_ms=300, confirm_epochs=6, reacq_period_ms=2000, k1_ms=k1_ms)
+
+
+def chunk_search_ms(mgr, reps: int = 10) -> dict:
+    """A live manager's on-chunk search on its source's first chunk: ms
+    per search (CUDA events after a warm-up) and the device memory it
+    takes beyond what is allocated before it."""
+    chunk = mgr._to_device(mgr.source.read_packed(0, mgr._chunk_len))
+    search = mgr._make_acq_chunk_fn()
+    search(chunk)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        search(chunk)
+    t1.record()
+    torch.cuda.synchronize()
+    return {"ms": t0.elapsed_time(t1) / reps,
+            "peak_extra_mb": (torch.cuda.max_memory_allocated() - base)
+            / 2 ** 20,
+            "grid_rows": int(len(mgr._acq_doppler)
+                             * (mgr.sd.num_prn if mgr._acq_offs is not None
+                                else 1))}
+
+
+def weak_tier_path(device) -> dict:
+    """tests/test_pipeline.py:270-312 on the card: GLONASS L1OF 4.096
+    Msps, channel 5 from the start and channel 12 from 400 ms, a 4 ms x
+    15 noncoherent search longer than one superepoch chunk, summed on the
+    card across chunks of the prefetch pipeline (20 ms epochs in pairs),
+    1.6 s."""
+    sig = SignalConfig(signal="glonass_l1of", if_freq=0.0, fs=4.096e6,
+                       code_freq=0.511e6, code_length=511,
+                       fdma_step=562.5e3, complex_iq=True)
+    step = 562.5e3
+    sats = [SatParams(prn=5, doppler_hz=1100.0, if_offset_hz=-3 * step,
+                      code_phase_chips=120.5, cn0_dbhz=47.0),
+            SatParams(prn=12, doppler_hz=-1700.0, if_offset_hz=4 * step,
+                      code_phase_chips=333.25, cn0_dbhz=46.0)]
+    early = IFSimulator(sig, sats[:1], noise_sigma=1.0, seed=3,
+                        device=device).generate(400)
+    late = IFSimulator(sig, sats, noise_sigma=1.0, seed=3,
+                       device=device).generate(1300, ms0=400)
+    cfg = ReceiverConfig(
+        signal=sig,
+        acq=AcqConfig(doppler_band=5e3, coherent_ms=4, noncoherent=15,
+                      threshold=1.8, prn_list=(5, 12), fine_doppler_ms=10,
+                      doppler_step=125.0),
+        track=TrackConfig(dll_bw=1.0), n_channels=3)
+    coll = _Collector()
+    tlm = Telemetry(sink=None)
+    tlm.subscribe(coll)
+    coll.enabled = True
+    mgr = ChannelManager(
+        ArraySource(np.concatenate([early, late])), cfg, device=device,
+        telemetry=tlm, epoch_ms=20, reacq_period_ms=300,
+        cn0_drop_dbhz=35.0, prn_pool=[5, 12], sync_every=2, prefetch=True)
+    steps = []
+    wk_step = mgr._wk_step
+
+    def counted(chunk, base, need_len):
+        out = wk_step(chunk, base, need_len)
+        steps.append((out[0], None if mgr._acq_wk is None
+                      else mgr._acq_wk["cube"].device.type))
+        return out
+
+    mgr._wk_step = counted
+    t0 = time.perf_counter()
+    recs = mgr.run(1600)
+    torch.cuda.synchronize()
+    starts = [(e["prn"], e["epoch_ms"]) for e in coll.events
+              if e["what"] == "channel_start"]
+    return {
+        "wall_s": time.perf_counter() - t0,
+        "chunk_shorter_than_search": mgr._chunk_len
+        < mgr._acq_samples_needed_chunk(),
+        "channel_starts": starts,
+        "host_searches": coll.host_searches,
+        "weak_steps": [st for st, _ in steps],
+        "cube_devices": sorted({d for _, d in steps if d}),
+        "live_at_end": sorted(int(p) for p in recs[-1].prn if p),
+    }
+
+
+def checkpoint_path(device) -> dict:
+    """tests/test_runtime.py:252-325 on the card: GPS 2.048 Msps, PRNs 5
+    and 12, 2-bit wire resident on the card; 800 ms, save the channel
+    bank, restore it into a new manager and run 600 ms more, against one
+    uninterrupted 1,400 ms run."""
+    sats = [SatParams(prn=5, doppler_hz=900.0, code_phase_chips=200.5,
+                      cn0_dbhz=47.0),
+            SatParams(prn=12, doppler_hz=-1500.0, code_phase_chips=700.25,
+                      cn0_dbhz=46.0)]
+    src = device_signal(SIG, sats, 1560, 3, device)
+    cfg = ReceiverConfig(
+        signal=SIG,
+        acq=AcqConfig(doppler_band=6e3, coherent_ms=2, threshold=2.4,
+                      prn_list=(5, 12), fine_doppler_ms=10),
+        track=TrackConfig(dll_bw=1.0), n_channels=3)
+
+    def mk(coll):
+        tlm = Telemetry(sink=None)
+        tlm.subscribe(coll)
+        coll.enabled = True
+        return ChannelManager(src, cfg, device=device, telemetry=tlm,
+                              epoch_ms=100, reacq_period_ms=400,
+                              cn0_drop_dbhz=35.0, prn_pool=[5, 12],
+                              sync_every=2)
+
+    m1 = mk(_Collector())
+    m1.run(800)
+    after = _Collector()
+    m2 = mk(after)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bank.npz")
+        m1.save_checkpoint(path)
+        meta = m2.restore_checkpoint(path)
+    state_devices = sorted({t.device.type for t in _state_leaves(m2._state)})
+    m2.run(600)
+    m0 = mk(_Collector())
+    m0.run(1400)
+    cph = {}
+    for prn in (5, 12):
+        a0, a2 = m0.history[prn]["_cph"], m2.history[prn]["_cph"]
+        n0 = sum(len(x) for x in m0.history[prn]["i_p"])
+        n2 = (m2.history[prn]["evicted"]
+              + sum(len(x) for x in m2.history[prn]["i_p"]))
+        cph[prn] = {"acc_equal": a2.acc == a0.acc,
+                    "phase_u32_equal": a2.phase_u32 == a0.phase_u32,
+                    "last_delta_equal": a2.last_delta == a0.last_delta,
+                    "blocks_equal": n2 == n0}
+    return {
+        "slots_saved": meta["slots"],
+        "restored_state_on": state_devices,
+        "channel_starts_after_resume": sum(
+            e["what"] == "channel_start" for e in after.events),
+        "host_searches_after_resume": after.host_searches,
+        "live_after_resume": sorted(s.prn for s in m2.slots if s.prn),
+        "cph": cph,
+    }
+
+
+def _state_leaves(tree):
+    if hasattr(tree, "_fields"):
+        return [x for f in tree._fields
+                for x in _state_leaves(getattr(tree, f))]
+    return [tree]
 
 
 def main() -> int:
@@ -1017,8 +1410,7 @@ def main() -> int:
     gres = galileo_main_path(dev)
     print(f"[9 galileo main path] {json.dumps(gres)}", flush=True)
     sky = gres["sky_prns"]
-    refused = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "gnsstpu"))
+    refused = refused_modules()
     gchecks = {
         "every sky SV decoded": set(sky) <= set(gres["decoded_prns"]),
         "pvt_solutions >= 10": gres["pvt_solutions"] >= 10,
@@ -1077,8 +1469,7 @@ def main() -> int:
     # 13. GLONASS L3OC main path.
     lres = l3_main_path(dev, k3_ms)
     print(f"[13 glonass l3oc main path] {json.dumps(lres)}", flush=True)
-    refused = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "gnsstpu"))
+    refused = refused_modules()
     rows = lres["sky"].values()
     lchecks = {
         "every sky SV in a TRACKING slot": all(
@@ -1104,9 +1495,74 @@ def main() -> int:
         raise AssertionError(f"glonass l3oc main path checks failed: "
                              f"{failed} (modules: {refused[:5]})")
 
+    # 14. K1 alone at the BeiDou and GLONASS launch shapes.
+    k1_new = {f"{tag} C=12x{n}": k1_alone(12, n, dev, sig, trk)
+              for tag, sig, trk in (("BeiDou B1I 4.096 Msps", BSIG, BTRK),
+                                    ("GLONASS L1OF 8.192 Msps", OSIG, OTRK))
+              for n in (100, 500)}
+    print("[14 K1 new shapes] kernel alone (its parity at these blkp: "
+          "phase 3) | " + " | ".join(f"{k}: {json.dumps(v)}"
+                                     for k, v in k1_new.items()),
+          flush=True)
+
+    # 15. BeiDou B1I main path.
+    bres, _ = beidou_main_path(
+        dev, k1_new["BeiDou B1I 4.096 Msps C=12x100"]["ms"])
+    print(f"[15 beidou b1i main path] {json.dumps(bres)}", flush=True)
+    k1_family_checks("beidou b1i main path", bres, 4, 30.0)
+
+    # 16. GLONASS L1OF main path and its on-chunk FDMA search.
+    ores, omgr = glonass_main_path(
+        dev, k1_new["GLONASS L1OF 8.192 Msps C=12x100"]["ms"])
+    osearch = chunk_search_ms(omgr)
+    del omgr
+    print(f"[16 glonass l1of main path] {json.dumps(ores)} | on-chunk "
+          f"FDMA search (14 channels x {OSIG.fs / 1e6:g} Msps, 2 x 2 ms "
+          f"windows): {json.dumps(osearch)}", flush=True)
+    k1_family_checks("glonass l1of main path", ores, 8, 25.0)
+    if ores["on_chunk_searches"] < 1:
+        raise AssertionError("glonass l1of main path: no on-chunk FDMA "
+                             "search after the cold start")
+
+    # 17. The manager's weak tier and checkpoint on the card.
+    wres = weak_tier_path(dev)
+    cres = checkpoint_path(dev)
+    print(f"[17 manager features] weak tier: {json.dumps(wres)} | "
+          f"checkpoint: {json.dumps(cres)}", flush=True)
+    late = [ms for prn, ms in wres["channel_starts"] if prn == 12]
+    fchecks = {
+        "weak: search longer than a chunk":
+            wres["chunk_shorter_than_search"],
+        "weak: late SV found after 400 ms": bool(late) and late[0] >= 400,
+        "weak: one host-path search, at epoch 0":
+            wres["host_searches"] == [0],
+        "weak: an accumulation finished on the card":
+            "done" in wres["weak_steps"]
+            and wres["cube_devices"] == ["cuda"],
+        "weak: both SVs live at the end": wres["live_at_end"] == [5, 12],
+        "checkpoint: state restored on the card":
+            cres["restored_state_on"] == ["cuda"],
+        "checkpoint: no channel_start or search after the resume":
+            cres["channel_starts_after_resume"] == 0
+            and not cres["host_searches_after_resume"],
+        "checkpoint: both SVs live after the resume":
+            cres["live_after_resume"] == [5, 12],
+        "checkpoint: carrier phase equal to an uninterrupted run": all(
+            all(v.values()) for v in cres["cph"].values()),
+    }
+    failed = [k for k, ok in fchecks.items() if not ok]
+    if failed:
+        raise AssertionError(f"manager feature checks failed: {failed}")
+
+    # 18. K1's launches on its three live paths.
+    k1_paths = {"gps_l1_live_12ch": res["k1_launches"],
+                "beidou_b1i_live_12ch": bres["k1_launches"],
+                "glonass_l1of_live_12ch": ores["k1_launches"]}
+    print(f"[18 K1 launches by path] {json.dumps(k1_paths)}", flush=True)
+
     print(json.dumps({"kernels": [
         {"name": "track_chunk_fused", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": res["k1_launches"],
+         "replaces": K1_REPLACES, "launches": sum(k1_paths.values()),
          "max_abs_err": dev500["acc_abs"], "ms": k500_ms,
          "plain_ms": p500_ms, "bound_ms": k1_bound_ms,
          "bound_by": k1_bound_by, "library_ms": None},

@@ -2,11 +2,13 @@
 
 Mirrors `python -m gnsstpu track` (gnsstpu/cli.py) for IF files: acquire +
 track with the live ChannelManager on a CUDA device (or --device cpu),
-optionally with the online navigator (--navigate) and a JSONL telemetry
-log (--log). The options of the reference that depend on parts not
-ported yet (--listen, --mesh, --resume, --checkpoint, --profile,
---stream, --station-port, a --source-fs resampler) raise
-NotImplementedError naming the ROADMAP item.
+optionally with the online navigator (--navigate), a JSONL telemetry
+log (--log), and a checkpoint of the live channel bank saved after the
+run (--checkpoint) or restored before it (--resume, a warm restart with
+no reacquisition). The options of the reference that depend on parts not
+ported yet (--listen, --mesh, --profile, --stream, --station-port, a
+--source-fs resampler) raise NotImplementedError naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -28,9 +30,8 @@ def _sig_config(args):
 
 def _refuse_unported(args) -> None:
     todo = {"listen": "the remaining CLI commands",
-            "mesh": "parallel/", "resume": "checkpoint",
-            "checkpoint": "checkpoint", "profile": "the remaining CLI "
-            "commands", "stream": "the remaining CLI commands",
+            "mesh": "parallel/", "profile": "the remaining CLI commands",
+            "stream": "the remaining CLI commands",
             "station_port": "the remaining CLI commands"}
     for opt, item in todo.items():
         if getattr(args, opt) is not None:
@@ -88,7 +89,11 @@ def cmd_track(args) -> int:
                              prefetch=args.prefetch,
                              readback=args.readback,
                              history_window_ms=args.history_window_ms)
+        if args.resume:
+            mgr.restore_checkpoint(args.resume)
         recs = mgr.run(args.ms)
+        if args.checkpoint:
+            mgr.save_checkpoint(args.checkpoint)
         if navr is not None and args.assist and navr.almanac:
             navr.save_assist(args.assist)
     finally:
@@ -124,6 +129,12 @@ def main(argv=None) -> int:
     p.add_argument("--epoch-ms", type=int, default=100)
     p.add_argument("--dll-bw", type=float, default=1.0)
     p.add_argument("--log", default=None, help="telemetry JSONL path")
+    p.add_argument("--checkpoint", default=None,
+                   help="save the live channel bank here after the run "
+                        "(.npz; warm-restart with --resume)")
+    p.add_argument("--resume", default=None,
+                   help="warm-restart from a saved channel bank: resume "
+                        "tracking with no reacquisition")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "fused", "gather", "table"],
                    help="tracking engine (auto = fused: kernel K1, or K2 "
@@ -142,8 +153,8 @@ def main(argv=None) -> int:
     p.add_argument("--navigate", nargs="?", const="lsq", default=None,
                    choices=["lsq", "ekf"])
     p.add_argument("--commands", default=None)
-    for opt in ("--listen", "--mesh", "--resume", "--checkpoint",
-                "--profile", "--stream", "--station-port"):
+    for opt in ("--listen", "--mesh", "--profile", "--stream",
+                "--station-port"):
         p.add_argument(opt, default=None, help="not ported yet (raises)")
     p.set_defaults(fn=cmd_track)
     args = ap.parse_args(argv)

@@ -1,11 +1,16 @@
 """Cold-start acquisition: FFT code-phase x Doppler search over all PRNs
-(port of gnsstpu/acquisition/search.py, CDMA signals).
+(acquire, CDMA) or all frequency channels (acquire_fdma, GLONASS L1/L2 OF)
+(port of gnsstpu/acquisition/search.py).
 
 Detection logic as the reference: B coherent windows (max-combined
 alternating windows, or sum-combined noncoherent), peak / second-peak
 ratio against a threshold, and the (code phase [samples], carrier
-frequency [Hz]) handoff to tracking. The FDMA search (acquire_fdma) is
-not ported yet (ROADMAP queue 1).
+frequency [Hz]) handoff to tracking.
+
+Deviation: acquire() on an FDMA signal raises ValueError naming
+acquire_fdma. The reference would search a per-PRN code bank against one
+Doppler grid around IF there, which finds no frequency channel but the
+zero one.
 """
 
 from __future__ import annotations
@@ -114,9 +119,9 @@ def acquire(samples_iq: np.ndarray, sig: SignalConfig, acq: AcqConfig, *,
     """
     sd = get_signal(sig.signal)
     if sd.fdma_zero_prn is not None:
-        raise NotImplementedError(
-            "FDMA acquisition (acquire_fdma) is not ported yet: "
-            "ROADMAP queue 1, 'weak-tier and FDMA acquisition'")
+        raise ValueError(
+            f"{sig.signal} is an FDMA signal: search it with acquire_fdma "
+            "(frequency channels share one code)")
     dev = resolve_device(device)
     spc = sig.samples_per_code
     samples = torch.as_tensor(np.array(samples_iq, np.float32),
@@ -141,6 +146,69 @@ def acquire(samples_iq: np.ndarray, sig: SignalConfig, acq: AcqConfig, *,
         allowed[[p - 1 for p in acq.prn_list]] = True
     detected = (metric > acq.threshold) & allowed
     carr = dopp[best_bin].astype(np.float64)
+    if acq.fine_doppler_ms > 0:
+        for i in np.nonzero(detected)[0]:
+            carr[i] = refine_doppler(
+                samples_iq, sig, int(i) + 1, int(code_phase[i]), carr[i],
+                k_ms=acq.fine_doppler_ms)
+    return AcqResults(peak_metric=metric, code_phase=code_phase,
+                      carr_freq=carr, detected=detected)
+
+
+def fdma_grid(sig: SignalConfig, acq: AcqConfig) -> tuple:
+    """An FDMA search's carrier grid, channel-major: (offs [K], the carrier
+    offset of each frequency channel (registry prn 1..K) from the zero
+    channel's; dopp [D], the Doppler grid around 0; grid [K * D], the
+    absolute carriers IF + offset + Doppler) [Hz]."""
+    sd = get_signal(sig.signal)
+    carr_all = np.array([sd.carrier_freq(p)
+                         for p in range(1, sd.num_prn + 1)])
+    offs = carr_all - sd.carrier_freq(sd.fdma_zero_prn or 1)
+    dopp = fft_acquire.doppler_grid(0.0, acq.doppler_band,
+                                    acq.doppler_bin_step())
+    return offs, dopp, (sig.if_freq + offs[:, None]
+                        + dopp[None, :]).reshape(-1)
+
+
+def acquire_fdma(samples_iq: np.ndarray, sig: SignalConfig, acq: AcqConfig,
+                 *, device="cuda") -> AcqResults:
+    """FDMA acquisition (GLONASS): search frequency channels, not PRNs.
+
+    All satellites share one ranging code and are separated by carrier
+    frequency: one shared code row is searched against the flattened
+    [channel x Doppler] carrier grid in one batch of transforms on
+    `device` ('cuda', the default, or 'cpu').
+
+    Result index 0 is registry prn 1 (for GLONASS frequency channel
+    k = prn - 8). carr_freq includes IF, the channel's FDMA offset from
+    the zero channel and the Doppler.
+    """
+    sd = get_signal(sig.signal)
+    dev = resolve_device(device)
+    spc = sig.samples_per_code
+    samples = torch.as_tensor(np.array(samples_iq, np.float32),
+                              device=dev)
+    blocks = stack_windows(samples, spc, acq)
+    _, combine = _windows_of(acq)
+    code_fd = code_fd_tensor(sig, acq, dev)[:1]      # one shared code row
+    offs, dopp1, grid = fdma_grid(sig, acq)
+    K, D = sd.num_prn, len(dopp1)
+    cube = fft_acquire.acquire_cube(
+        blocks, code_fd, torch.as_tensor(grid, dtype=torch.float32,
+                                         device=dev),
+        sig.fs, spc, combine=combine).reshape(K, D, spc)
+    m = fft_acquire.peak_metrics(cube, samples_per_code=spc,
+                                 samples_per_chip=round(sig.fs
+                                                        / sig.code_freq))
+    metric = m["metric"].cpu().numpy()
+    code_phase = m["code_phase"].cpu().numpy()
+    best_bin = m["doppler_bin"].cpu().numpy()
+    carr = (offs + dopp1[best_bin] + sig.if_freq).astype(np.float64)
+    detected = metric > acq.threshold
+    if acq.prn_list is not None:
+        allowed = np.zeros(K, bool)
+        allowed[[p - 1 for p in acq.prn_list]] = True
+        detected &= allowed
     if acq.fine_doppler_ms > 0:
         for i in np.nonzero(detected)[0]:
             carr[i] = refine_doppler(

@@ -17,7 +17,11 @@
 //   * carrier wipeoff and the six accumulators IE..QL;
 //   * atan2 FLL + Costas PLL (carr_nco += k1 e - k2 e_old - k3 f), the
 //     normalized E-L envelope DLL with carrier aiding, and the rem / pos /
-//     phase advance.
+//     phase advance. With fll_atan the FLL is the sign-flip-invariant
+//     two-quadrant one, atan2(cross * sign(dot), |dot|) (TrackConfig
+//     fll_disc "atan", the scan engines' form): BeiDou D1's NH(20) code
+//     flips the symbol every 1 ms block, which the atan2 form reads as a
+//     frequency error. The Pallas kernel has the atan2 form only.
 //
 // Design: a latency-first chain, one CTA of 256 threads per channel (no
 // cluster). The tap table is int8 [C, R, bp], bp = blkp rounded up to 128
@@ -118,6 +122,7 @@ struct Params {
   float row_off[3];             // (-spacing, 0, +spacing) + span_chips
   float ang_scale, inv_pi, inv_2pi;
   float k1, k2, k3, c_dll_p, c_dll_i;
+  int fll_atan;                 // 1: atan2(cross * sign(dot), |dot|)
 };
 
 struct Geometry {
@@ -607,8 +612,10 @@ track_fused_kernel(const float2* __restrict__ chunk,
       if (lane == 0) {
         const float ip_prev = st[F_IP_PREV], qp_prev = st[F_QP_PREV];
         const float cross = ip * qp_prev - ip_prev * qp;
-        const float dot = fabsf(ip * ip_prev + qp * qp_prev);
-        freq_err = atan2f(cross, dot) * p.inv_pi;
+        const float dot = ip * ip_prev + qp * qp_prev;
+        const float flip = !p.fll_atan ? 1.f
+                           : (dot > 0.f ? 1.f : (dot < 0.f ? -1.f : 0.f));
+        freq_err = atan2f(cross * flip, fabsf(dot)) * p.inv_pi;
       }
       __syncwarp();
       bar_sync(BAR_ERR, 96);
@@ -756,7 +763,8 @@ extern "C" int track_chunk_fused_cuda(
     int blkp, int code_length, float base_code_step, float inv_fs,
     float nco_scale, float ph, float row_off_e, float row_off_p,
     float row_off_l, float ang_scale, float inv_pi, float inv_2pi, float k1,
-    float k2, float k3, float c_dll_p, float c_dll_i, void* stream) {
+    float k2, float k3, float c_dll_p, float c_dll_i, int fll_atan,
+    void* stream) {
   const void* fn = stamps ? (const void*)&track_fused_kernel<true>
                           : (const void*)&track_fused_kernel<false>;
   if (blkp < 1 || blkp > ctrack::MAX_BLKP || R < 1 || C < 0 || n_blocks < 0)
@@ -789,6 +797,7 @@ extern "C" int track_chunk_fused_cuda(
   p.k3 = k3;
   p.c_dll_p = c_dll_p;
   p.c_dll_i = c_dll_i;
+  p.fll_atan = fll_atan;
   const float2* x = reinterpret_cast<const float2*>(chunk);
   void* args[] = {(void*)&x,      (void*)&tab,     (void*)&pos0,
                   (void*)&finit,  (void*)&cinit,   (void*)&carrbase,

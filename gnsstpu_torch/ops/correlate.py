@@ -51,10 +51,15 @@ def _block_geometry(state: CorrState, *, code_length: int,
 
 
 def _window(chunk: torch.Tensor, sample_pos: torch.Tensor, blkmax: int):
-    """[C, blkmax, 2] windows at each channel's cursor. Like
-    jax.lax.dynamic_slice, a start past N - blkmax is clamped."""
+    """[C, blkmax, 2] windows at each channel's cursor, as
+    jax.lax.dynamic_slice takes them: a negative start counts from the
+    end of the chunk, then a start past N - blkmax is clamped. (A cursor
+    that drifts to -1 within a serial superepoch thus reads the chunk's
+    tail for one block, as the reference's scan engines do.)"""
     n = chunk.shape[0]
-    start = torch.clamp(sample_pos.to(torch.int64), 0, n - blkmax)
+    start = sample_pos.to(torch.int64)
+    start = torch.clamp(torch.where(start < 0, start + n, start), 0,
+                        n - blkmax)
     idx = start[:, None] + torch.arange(blkmax, device=chunk.device)
     return chunk[idx]
 
@@ -119,7 +124,12 @@ def correlate_block(chunk: torch.Tensor, padded_code: torch.Tensor,
             < blksize[:, None]).to(torch.float32)
     # E/P/L chip indices floor(t + off) + 1 into the padded code (point
     # sampling at the start of each sample interval, as the reference).
-    t_p = state.rem_code_phase[:, None] + k[None, :] * step[:, None]
+    # t = rem + k * step rounded once, as the reference's XLA program
+    # computes it on the CPU (a fused multiply-add; the f64 product of two
+    # f32 values is exact): a second rounding moves a sample that lies on
+    # a chip edge into the next chip.
+    t_p = (state.rem_code_phase.double()[:, None]
+           + k.double()[None, :] * step.double()[:, None]).float()
     codes = []
     for off in (-spacing, 0.0, spacing):
         idx = torch.floor(t_p + f32(off)).to(torch.int64) + 1

@@ -72,10 +72,15 @@ def acquire_cube(blocks_iq: torch.Tensor, code_fd: torch.Tensor,
     code_fd: complex64 [P, Npad] conj code spectra (code_fd_table);
     doppler_hz: f32 [D] absolute carrier frequencies to wipe off;
     combine: 'max' over windows (bit-flip dodge) or 'sum' (noncoherent).
-    PRNs go through the inverse FFTs in chunks whose [B, D, c, Npad]
-    spectrum product stays under _CHUNK_BYTES (as the reference maps over
-    PRN chunks): a Galileo E1B search at 4.2 Msps holds 127 MB per PRN
-    at 121 Doppler bins.
+    PRNs go through the inverse FFTs in chunks of as many PRNs as fit a
+    [B, D, c, Npad] spectrum product under _CHUNK_BYTES, at least one
+    (as the reference maps over PRN chunks): a Galileo E1B search at 4.2
+    Msps holds 127 MB per PRN at 121 Doppler bins. An FDMA search is one
+    code row (P = 1) and is not split: at GLONASS L1OF 8.192 Msps its
+    798 carriers x 2 windows x 32,768 points give f, the product and the
+    inverse transform 418 MB each, and the search takes 1,871.9 MB beyond
+    what was allocated before it (chip_smoke.py's phase 16 on an NVIDIA
+    H100 80GB HBM3 at 700 W).
     Returns f32 [P, D, samples_per_code].
     """
     B, Lw, _ = blocks_iq.shape

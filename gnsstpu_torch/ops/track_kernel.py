@@ -196,8 +196,9 @@ def track_chunk_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
                           n_blocks: int, blkp: int, code_length: int,
                           phases_per_chip: int, spacing: float,
                           span_chips: float, base_code_step: float,
-                          fs: float, coefs):
+                          fs: float, coefs, fll_disc: str = "atan2"):
     """Plain PyTorch version of K1 (same algorithm, block loop in Python)."""
+    flip_fll = _fll_atan(fll_disc)
     k = _consts(code_length=code_length, phases_per_chip=phases_per_chip,
                 spacing=spacing, span_chips=span_chips,
                 base_code_step=base_code_step, fs=fs, coefs=coefs)
@@ -242,8 +243,10 @@ def track_chunk_fused_ref(chunk, tab, pos0, finit, cinit, carrbase, *,
 
         ip_prev, qp_prev = st[:, _F_IP_PREV], st[:, _F_QP_PREV]
         cross = ip * qp_prev - ip_prev * qp
-        dot = torch.abs(ip * ip_prev + qp * qp_prev)
-        freq_err = torch.atan2(cross, dot) * k["inv_pi"]
+        dot = ip * ip_prev + qp * qp_prev
+        if flip_fll:
+            cross = cross * torch.sign(dot)
+        freq_err = torch.atan2(cross, torch.abs(dot)) * k["inv_pi"]
         denom = torch.where(torch.abs(ip) < 1e-10,
                             torch.full_like(ip, 1e-10), ip)
         carr_err = torch.atan(qp / denom) * k["inv_2pi"]
@@ -284,7 +287,7 @@ def _lib():
     if not fn.argtypes:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 5
-                       + [fl] * 15 + [p])
+                       + [fl] * 15 + [i, p])
         fn.restype = ctypes.c_int
         info = built.lib.track_fused_info
         info.argtypes = [i, p]
@@ -305,6 +308,15 @@ def _check(name, t, dtype, shape, dev):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _fll_atan(fll_disc: str) -> bool:
+    """K1's FLL discriminator: 'atan2' (four-quadrant, the reference
+    kernel's) or 'atan' (atan2(cross * sign(dot), |dot|), immune to a
+    symbol flip between consecutive blocks, as TrackConfig.fll_disc)."""
+    if fll_disc not in ("atan2", "atan"):
+        raise ValueError(f"fll_disc {fll_disc!r} not in ('atan2', 'atan')")
+    return fll_disc == "atan"
 
 
 def _check_blkp(blkp: int) -> None:
@@ -332,7 +344,8 @@ def _check_fused(chunk, tab, pos0, finit, cinit, carrbase, blkp: int,
 def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
                   n_blocks: int, blkp: int, code_length: int,
                   phases_per_chip: int, spacing: float, span_chips: float,
-                  base_code_step: float, fs: float, coefs):
+                  base_code_step: float, fs: float, coefs,
+                  fll_disc: str = "atan2"):
     """One launch of K1 (its stamped instance when stamps is not None)
     on CUDA tensors already checked; returns (out, ffin, pos, cphase)."""
     dev = chunk.device
@@ -357,7 +370,8 @@ def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
         C, n_blocks, R, blkp, code_length,
         k["base_code_step"], k["inv_fs"], k["nco_scale"], k["ph"],
         *k["row_off"], k["ang_scale"], k["inv_pi"], k["inv_2pi"],
-        k["k1"], k["k2"], k["k3"], k["c_dll_p"], k["c_dll_i"], stream)
+        k["k1"], k["k2"], k["k3"], k["c_dll_p"], k["c_dll_i"],
+        int(_fll_atan(fll_disc)), stream)
     if rc != 0:
         msg = built.lib.track_fused_error_string(rc).decode()
         raise RuntimeError(f"track_chunk_fused launch failed: {msg} ({rc})")
@@ -368,8 +382,9 @@ def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
                       n_blocks: int, blkp: int, code_length: int,
                       phases_per_chip: int, spacing: float,
                       span_chips: float, base_code_step: float, fs: float,
-                      coefs):
-    """Run K1. coefs = (k1, k2, k3, c_dll_p, c_dll_i).
+                      coefs, fll_disc: str = "atan2"):
+    """Run K1. coefs = (k1, k2, k3, c_dll_p, c_dll_i); fll_disc 'atan2'
+    or 'atan' (_fll_atan).
 
     Dtypes and shapes are checked on every device (blkp <= MAX_BLKP, tab
     int8 [C, R, plane_stride(blkp)]). CPU tensors then run the plain
@@ -379,8 +394,9 @@ def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
     kw = dict(n_blocks=n_blocks, blkp=blkp, code_length=code_length,
               phases_per_chip=phases_per_chip, spacing=spacing,
               span_chips=span_chips, base_code_step=base_code_step, fs=fs,
-              coefs=coefs)
+              coefs=coefs, fll_disc=fll_disc)
     _check_fused(chunk, tab, pos0, finit, cinit, carrbase, blkp, n_blocks)
+    _fll_atan(fll_disc)
     dev = chunk.device
     if dev.type == "cpu":
         return track_chunk_fused_ref(chunk, tab, pos0, finit, cinit,

@@ -1,6 +1,6 @@
 """Channel manager: acquisition scheduling, lock supervision, reacquisition
-(port of gnsstpu/runtime/manager.py for the 1 ms-code scan family, Galileo
-E1B and GLONASS L3OC, on one device).
+(port of gnsstpu/runtime/manager.py for every signal family, on one
+device).
 
 The device tracks a fixed [C]-slot channel bank; the host supervises at
 epoch boundaries: it reads back prompt statistics, assesses lock, swaps
@@ -24,15 +24,24 @@ readback='compact' ships the per-block observables as one byte-packed
 buffer (f16 prompts, pilot and data for L3OC, u16 rem, i16 blksize delta,
 f32 Doppler + stats).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-a device mesh, the cross-superepoch weak-tier accumulation, FDMA
-acquisition, and checkpoint save/restore.
+Acquisition is FFT search over a grid built in one place (_acq_grid): the
+all-PRN code bank against a Doppler grid (CDMA), or one shared code row
+against the flattened [frequency channel x Doppler] carrier grid (GLONASS
+L1/L2 OF, FDMA). A due search rides the superepoch's uploaded chunk; a
+noncoherent ('sum') search longer than one chunk accumulates its power
+cube on the device across consecutive chunks (the weak tier). The live
+channel bank saves to and restores from a checkpoint file (the reference's
+npz + JSON format) for a warm restart without reacquisition.
+
+Not ported yet: a device mesh (raises NotImplementedError naming its
+ROADMAP item).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import json
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -45,17 +54,13 @@ from gnsstpu_torch.config import ReceiverConfig
 from gnsstpu_torch.runtime.telemetry import Telemetry
 from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.acquisition.search import (
-    AcqResults, _windows_of, acq_samples_needed, acquire, code_fd_tensor,
-    refine_doppler)
-from gnsstpu_torch.device import resolve_device
+    AcqResults, _windows_of, acq_samples_needed, acquire, acquire_fdma,
+    code_fd_tensor, fdma_grid, refine_doppler)
+from gnsstpu_torch.device import U32_MASK, resolve_device
 from gnsstpu_torch.ops import fft_acquire
 from gnsstpu_torch.ops import unpack as up
 from gnsstpu_torch.tracking import lock as tlock
 from gnsstpu_torch.tracking.engines import make_engine
-
-_TODO_WEAK = ("ROADMAP queue 1, 'weak-tier and FDMA acquisition in the "
-              "manager'")
-
 
 class SlotState(enum.Enum):
     IDLE = "idle"
@@ -188,10 +193,6 @@ class ChannelManager:
         self.cfg = cfg
         self.sig = cfg.signal
         self.sd = get_signal(self.sig.signal)
-        if self.sd.fdma_zero_prn is not None:
-            raise NotImplementedError(
-                f"{self.sig.signal}: FDMA acquisition is not ported yet: "
-                + _TODO_WEAK)
         self.tlm = telemetry or Telemetry()
         self.epoch_ms = epoch_ms
         self.drop_after = drop_after_epochs
@@ -260,6 +261,12 @@ class ChannelManager:
         self.history: Dict[int, dict] = {}
         self._summarize = self._make_summarize()
         self._acq_chunk_fn = None
+        self._acq_offs = None       # FDMA channel offsets (_acq_grid)
+        self._acq_doppler = None    # Doppler grid of the on-chunk search
+        # Weak tier: a noncoherent search longer than one chunk sums its
+        # power cube [num_prn, D, spc] on the device across chunks.
+        self._acq_wk = None         # {"cube", "done", "base0"}
+        self._acq_wk_fns = False    # lazy (accum, finish, B, B_c, need)
         espc = self._bpe * spc
         self._espc = espc
         self._win_len = espc + spc + self._drift_margin + 2
@@ -452,11 +459,13 @@ class ChannelManager:
             raise
         if not np.any(samples):
             return
-        res = acquire(samples, self.sig, acq_cfg, device=self.device)
-        self._place(res, idle, want, self._cursor, epoch_ms)
+        fdma = self.sd.fdma_zero_prn is not None
+        search = acquire_fdma if fdma else acquire
+        res = search(samples, self.sig, acq_cfg, device=self.device)
+        self._place(res, idle, want, self._cursor, epoch_ms, fdma=fdma)
 
     def _place(self, res, idle: list, want: list, base: int,
-               epoch_ms: int) -> None:
+               epoch_ms: int, fdma: bool) -> None:
         """Allocate detected PRNs into idle slots (handoff to tracking)."""
         order = np.argsort(-res.peak_metric)
         for i in order:
@@ -468,39 +477,75 @@ class ChannelManager:
                 break
             slot = idle.pop(0)
             dopp = float(res.carr_freq[i]) - self.sig.if_freq
+            if fdma:   # Doppler relative to this PRN's own channel carrier
+                dopp -= (self.sd.carrier_freq(prn)
+                         - self.sd.carrier_freq(self.sd.fdma_zero_prn))
             self._alloc(slot, prn,
                         code_phase=base + float(res.code_phase[i]),
                         doppler_hz=dopp, epoch_ms=epoch_ms)
 
+    def _acq_grid(self):
+        """Search-grid geometry of the on-chunk search and the weak-tier
+        accumulator, built in this one place so that _finish_chunk_acq
+        reads code_phase / doppler_bin the same way for both.
+
+        CDMA: the all-PRN code bank against the Doppler grid around IF.
+        FDMA (GLONASS L1/L2): one shared code row against the flattened
+        [channel x Doppler] carrier grid (acquire_fdma's). Sets
+        self._acq_offs (FDMA channel offsets, else None) and
+        self._acq_doppler (the Doppler grid, around 0 for FDMA); returns
+        (code_fd, grid_dev, fdma, K, D, spchip)."""
+        acq = self.cfg.acq
+        sig = self.sig
+        code_fd = code_fd_tensor(sig, acq, self.device)
+        fdma = self.sd.fdma_zero_prn is not None
+        if fdma:
+            code_fd = code_fd[:1]                 # one shared code
+            self._acq_offs, dopp, grid = fdma_grid(sig, acq)
+        else:
+            dopp = fft_acquire.doppler_grid(
+                sig.if_freq, acq.doppler_band, acq.doppler_bin_step())
+            grid = dopp
+            self._acq_offs = None
+        self._acq_doppler = dopp
+        return (code_fd, torch.as_tensor(grid, dtype=torch.float32,
+                                         device=self.device),
+                fdma, self.sd.num_prn, len(dopp),
+                round(sig.fs / sig.code_freq))
+
     def _make_acq_chunk_fn(self):
         """Cold search over the leading window of an uploaded device
-        chunk: reacquisition rides the superepoch's transfer. Returns
-        search(chunk) -> f32 [3, P] (metric, code_phase, doppler_bin)."""
+        chunk: reacquisition rides the superepoch's transfer (grid:
+        _acq_grid). Returns search(chunk) -> f32 [3, P] (metric,
+        code_phase, doppler_bin)."""
         acq = self.cfg.acq
         sig = self.sig
         spc = sig.samples_per_code
         B, combine = _windows_of(acq)
         L = acq.coherent_ms * spc
         Lw = fft_acquire.window_len(spc, acq.coherent_ms)
-        code_fd = code_fd_tensor(sig, acq, self.device)
-        self._acq_doppler = fft_acquire.doppler_grid(
-            sig.if_freq, acq.doppler_band, acq.doppler_bin_step())
-        grid = torch.as_tensor(self._acq_doppler, dtype=torch.float32,
-                               device=self.device)
-        spchip = round(sig.fs / sig.code_freq)
+        code_fd, grid, fdma, K, D, spchip = self._acq_grid()
 
         def search(chunk):
             blocks = torch.stack([chunk[k * L: k * L + Lw]
                                   for k in range(B)])
             cube = fft_acquire.acquire_cube(blocks, code_fd, grid, sig.fs,
                                             spc, combine=combine)
-            m = fft_acquire.peak_metrics(cube, samples_per_code=spc,
-                                         samples_per_chip=spchip)
-            return torch.stack([m["metric"],
-                                m["code_phase"].to(torch.float32),
-                                m["doppler_bin"].to(torch.float32)])
+            if fdma:
+                cube = cube.reshape(K, D, spc)
+            return self._peak_lanes(cube, spc, spchip)
 
         return search
+
+    @staticmethod
+    def _peak_lanes(cube, spc: int, spchip: int) -> torch.Tensor:
+        """f32 [3, P] (metric, code_phase, doppler_bin) of a power cube,
+        one tensor for one readback."""
+        m = fft_acquire.peak_metrics(cube, samples_per_code=spc,
+                                     samples_per_chip=spchip)
+        return torch.stack([m["metric"],
+                            m["code_phase"].to(torch.float32),
+                            m["doppler_bin"].to(torch.float32)])
 
     def _acq_samples_needed_chunk(self) -> int:
         B, _ = _windows_of(self.cfg.acq)
@@ -508,15 +553,99 @@ class ChannelManager:
         return ((B - 1) * self.cfg.acq.coherent_ms * spc
                 + fft_acquire.window_len(spc, self.cfg.acq.coherent_ms))
 
-    def _wk_step(self):
-        """A search longer than one chunk: the reference accumulates it
-        across superepochs on the device (noncoherent 'sum' tiers); a
-        'max' tier falls back to the host-path search."""
-        if _windows_of(self.cfg.acq)[1] == "sum":
-            raise NotImplementedError(
-                "cross-superepoch weak-tier accumulation is not ported "
-                "yet: " + _TODO_WEAK)
-        return "unsupported"
+    # --- cross-superepoch weak-tier acquisition ---
+
+    def _make_acq_wk(self):
+        """Lazy-build the weak-tier accumulation: accum(chunk, cube, roll)
+        adds one chunk's B_c noncoherent windows into the persistent
+        device cube, the code-phase axis rolled into the accumulation's
+        base frame; finish(cube) gives the [3, P] peak lanes. Returns
+        None when the config cannot accumulate (not a sum tier, or the
+        chunk cannot hold one window without overlapping the next)."""
+        if self._acq_wk_fns is not False:
+            return self._acq_wk_fns
+        acq = self.cfg.acq
+        sig = self.sig
+        spc = sig.samples_per_code
+        B, combine = _windows_of(acq)
+        L = acq.coherent_ms * spc
+        Lw = fft_acquire.window_len(spc, acq.coherent_ms)
+        # Windows per chunk are sized to the chunk ADVANCE (k * espc), not
+        # its length: consecutive chunks overlap by win_len - espc samples
+        # and a window reaching into the overlap would be summed twice.
+        # An advance shorter than one window fits none without overlap:
+        # unsupported, the host-path search takes over.
+        adv = self._espc * self.sync_every
+        if combine != "sum" or Lw > self._chunk_len or adv < Lw:
+            self._acq_wk_fns = None
+            return None
+        B_c = min(B, (adv - Lw) // L + 1)
+        need = (B_c - 1) * L + Lw      # samples one accumulate reads
+        code_fd, grid, fdma, K, D, spchip = self._acq_grid()
+
+        def accum(chunk, cube, roll: int):
+            blocks = torch.stack([chunk[k * L: k * L + Lw]
+                                  for k in range(B_c)])
+            part = fft_acquire.acquire_cube(blocks, code_fd, grid, sig.fs,
+                                            spc, combine="sum")
+            if fdma:
+                part = part.reshape(K, D, spc)
+            # Later chunks start at another stream base: rotate the
+            # code-phase axis into the first chunk's frame (a peak for
+            # code start s sits at (s - base) mod spc).
+            return cube + torch.roll(part, roll, dims=-1)
+
+        def finish(cube):
+            return self._peak_lanes(cube, spc, spchip)
+
+        self._acq_wk_fns = (accum, finish, B, B_c, need)
+        return self._acq_wk_fns
+
+    def _wk_step(self, chunk_dev, base: int, need_len: int):
+        """Advance the cross-superepoch weak search by one chunk. Returns
+        ('unsupported', None, 0) | ('pending', None, 0) | ('done', [3, P]
+        device metrics, base0)."""
+        fns = self._make_acq_wk()
+        if fns is None:
+            return ("unsupported", None, 0)
+        accum, finish, B, B_c, need = fns
+        if need_len < need:
+            # Tail / short chunk: pause, keep the accumulated cube.
+            return ("pending", None, 0)
+        spc = self.sig.samples_per_code
+        if self._acq_wk is None:
+            # Cube rows: every PRN (CDMA code bank) or every frequency
+            # channel (FDMA), both sd.num_prn.
+            self._acq_wk = {
+                "cube": torch.zeros(
+                    (self.sd.num_prn, len(self._acq_doppler), spc),
+                    dtype=torch.float32, device=self.device),
+                "done": 0, "base0": int(base)}
+        wk = self._acq_wk
+        roll = (int(base) - wk["base0"]) % spc
+        wk["cube"] = accum(chunk_dev, wk["cube"], roll)
+        wk["done"] += B_c
+        if wk["done"] >= B:
+            lanes = finish(wk["cube"])
+            base0 = wk["base0"]
+            self._acq_wk = None
+            return ("done", lanes, base0)
+        return ("pending", None, 0)
+
+    def _chunk_search(self, chunk_dev, base: int, need_len: int):
+        """A due search against an uploaded chunk: the full search when
+        it fits the chunk (an accumulation in progress is then stale),
+        else one weak-tier step. Returns (device [3, P] metrics or None,
+        their base, host-path fallback wanted)."""
+        if need_len >= self._acq_samples_needed_chunk():
+            self._acq_wk = None
+            if self._acq_chunk_fn is None:
+                self._acq_chunk_fn = self._make_acq_chunk_fn()
+            return self._acq_chunk_fn(chunk_dev), base, False
+        st, lanes, base0 = self._wk_step(chunk_dev, base, need_len)
+        if st == "done":
+            return lanes, base0, False
+        return None, base, st == "unsupported"
 
     def _host_samples(self, start: int, count: int) -> np.ndarray:
         """f32 [count, 2] host samples, from the retained chunk buffer
@@ -559,13 +688,17 @@ class ChannelManager:
         allowed = np.zeros(self.sd.num_prn, bool)
         allowed[[p - 1 for p in want]] = True
         detected = (metric > acq.threshold) & allowed
+        fdma = self._acq_offs is not None
         carr = self._acq_doppler[best_bin].astype(np.float64)
+        if fdma:   # absolute carrier: IF + channel offset + Doppler bin
+            carr = carr + self.sig.if_freq + self._acq_offs
         if acq.fine_doppler_ms > 0 and np.any(detected):
             k_ms = acq.fine_doppler_ms
             win = self._host_samples(base, (k_ms + 1) * self.sig.
                                      samples_per_code + 64)
-            # Refine only against a fully covered window (a zero-filled
-            # part corrupts the estimate).
+            # Refine only against a fully covered window: a weak search's
+            # base can predate the retained chunk, and a zero-filled part
+            # corrupts the estimate.
             covered = np.count_nonzero(
                 np.abs(win).sum(axis=1)) >= 0.99 * len(win)
             if covered:
@@ -580,6 +713,8 @@ class ChannelManager:
         fc = np.array([self.sd.carrier_freq(p)
                        for p in range(1, self.sd.num_prn + 1)], np.float64)
         fd = carr - self.sig.if_freq
+        if fdma:   # Doppler relative to each channel's own carrier
+            fd = fd - self._acq_offs
         step = spc * (1.0 - fd / fc)
         adv = np.maximum(np.ceil((head - abs_cp) / step), 0.0)
         abs_cp = abs_cp + adv * step
@@ -587,7 +722,7 @@ class ChannelManager:
                          carr_freq=carr, detected=detected)
         idle = [i for i, s in enumerate(self.slots)
                 if s.state is SlotState.IDLE]
-        self._place(res, idle, want, base=0, epoch_ms=epoch_ms)
+        self._place(res, idle, want, base=0, epoch_ms=epoch_ms, fdma=fdma)
 
     # --- device-side epoch summary ---
 
@@ -777,16 +912,18 @@ class ChannelManager:
         self._state = state
 
         acq_fut = None
+        acq_base = base
         acq_host_fallback = False
         want = self._want_prns()
         have_idle = any(s.state is SlotState.IDLE for s in self.slots)
-        if acq_due and want and have_idle:
-            if need_len >= self._acq_samples_needed_chunk():
-                if self._acq_chunk_fn is None:
-                    self._acq_chunk_fn = self._make_acq_chunk_fn()
-                acq_fut = _Readback([self._acq_chunk_fn(chunk_dev)])
-            else:
-                acq_host_fallback = self._wk_step() == "unsupported"
+        if (acq_due or self._acq_wk is not None) and want and have_idle:
+            lanes, acq_base, host = self._chunk_search(chunk_dev, base,
+                                                       need_len)
+            if lanes is not None:
+                acq_fut = _Readback([lanes])
+            acq_host_fallback = host and acq_due
+        elif not (want and have_idle):
+            self._acq_wk = None
         if acq_due:
             self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
 
@@ -819,7 +956,7 @@ class ChannelManager:
                              time.perf_counter() - t_sup0)
 
         if acq_fut is not None:
-            self._finish_chunk_acq(acq_fut, want, base,
+            self._finish_chunk_acq(acq_fut, want, acq_base,
                                    (e0 + k) * self.epoch_ms)
         elif acq_host_fallback:
             t0 = time.perf_counter()
@@ -879,21 +1016,24 @@ class ChannelManager:
             delta, mask, newsp, k)
         packed = _Readback(packed)
         acq_fut = None
+        acq_base = chunk.base
         acq_host = False
         want = []
         acq_due = epoch_ms0 >= self._next_reacq_ms
-        if acq_due:
+        if acq_due or self._acq_wk is not None:
             want = self._want_prns()
             have_idle = any(s.state is SlotState.IDLE
                             for s in self.slots)
             if want and have_idle:
-                if chunk.need_len >= self._acq_samples_needed_chunk():
-                    if self._acq_chunk_fn is None:
-                        self._acq_chunk_fn = self._make_acq_chunk_fn()
-                    acq_fut = _Readback([self._acq_chunk_fn(chunk.dev)])
-                else:
-                    acq_host = self._wk_step() == "unsupported"
-            self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
+                lanes, acq_base, host = self._chunk_search(
+                    chunk.dev, chunk.base, chunk.need_len)
+                if lanes is not None:
+                    acq_fut = _Readback([lanes])
+                acq_host = host and acq_due
+            else:
+                self._acq_wk = None
+            if acq_due:
+                self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
         n_active = sum(s.state is not SlotState.IDLE for s in self.slots)
         return _Inflight(e0=e0, k=k, base=chunk.base, packed=packed,
                          acq_fut=acq_fut, acq_want=want,
@@ -901,7 +1041,7 @@ class ChannelManager:
                          n_active=n_active, t_read=chunk.t_read,
                          t_up=chunk.t_up,
                          t_disp=time.perf_counter() - t0,
-                         acq_base=chunk.base)
+                         acq_base=acq_base)
 
     def _next_base(self, active: list, la: int, k: int, det: int) -> int:
         """Base for the next chunk: follow the fleet's positions (min
@@ -1322,14 +1462,108 @@ class ChannelManager:
     # --- checkpoint / warm restart ---
 
     def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(
-            "checkpoint save/restore is not ported yet: ROADMAP queue 1, "
-            "'checkpoint'")
+        """Persist the live channel bank (slot assignments, tracking
+        state, stream positions) in the reference's file format (npz +
+        JSON meta, runtime/checkpoint.py). Each live slot's integer
+        carrier-phase accumulator rides along, so integrated carrier
+        phase and the absolute block index continue across a restart;
+        acc is an exact Python int and travels as a decimal string."""
+        from gnsstpu_torch.runtime import checkpoint
+
+        cph = {}
+        for s in self.slots:
+            if s.state is SlotState.IDLE or s.prn not in self.history:
+                continue
+            h = self.history[s.prn]
+            a = h.get("_cph")
+            if a is None:
+                continue
+            cph[str(s.prn)] = {
+                "acc": str(a.acc),
+                "last_delta": float(a.last_delta),
+                "base": int(a.base),
+                "blocks_seen": int(h.get("evicted", 0))
+                + sum(len(x) for x in h["i_p"]),
+            }
+
+        def to_host(t):
+            x = t.detach().cpu().numpy()
+            # int64 leaves carry u32 NCO phases.
+            return x & U32_MASK if x.dtype == np.int64 else x
+
+        checkpoint.save(
+            path,
+            state=_map_state(to_host, self._state),
+            meta={
+                "signal": self.sig.signal,
+                "epoch_ms": self.epoch_ms,
+                "slots": [[s.state.value, s.prn, s.started_ms]
+                          for s in self.slots],
+                "abs_pos": [float(v) for v in self._abs_pos],
+                "cursor": int(self._cursor),
+                "cph": cph,
+            })
 
     def restore_checkpoint(self, path: str) -> dict:
-        raise NotImplementedError(
-            "checkpoint save/restore is not ported yet: ROADMAP queue 1, "
-            "'checkpoint'")
+        """Warm-restart from a saved channel bank: slots resume at their
+        saved code phases with no reacquisition, and their carrier-phase
+        accumulators continue (phase_u32 bit-exact against an
+        uninterrupted run). Call before run(); the source must serve the
+        saved stream positions. Every state leaf becomes a fresh device
+        tensor; u32 leaves ride int64 in [0, 2^32). Only a file this
+        package wrote is restored: the loader imports every class the
+        file names, and a file of the reference receiver names gnsstpu's
+        (ValueError)."""
+        from gnsstpu_torch.runtime import checkpoint
+
+        with np.load(path, allow_pickle=False) as z:
+            payload = json.loads(bytes(z["__meta__"]).decode())
+        names = [s[1] for s in payload["spec"] if s[0] == "nt"] + [
+            e["__cls__"] for e in payload["ephs"].values()]
+        foreign = sorted({n for n in names
+                          if n.split(".")[0] != "gnsstpu_torch"})
+        if foreign:
+            raise ValueError(
+                f"checkpoint names classes outside gnsstpu_torch "
+                f"({', '.join(foreign)}): not a file this package wrote")
+        state, meta, _, _ = checkpoint.load(path)
+        if meta.get("signal") != self.sig.signal:
+            raise ValueError(
+                f"checkpoint is for signal {meta.get('signal')!r}")
+
+        def to_dev(x):
+            t = self._put_dev(np.array(x))
+            return t & U32_MASK if t.dtype == torch.int64 else t
+
+        self._state = _map_state(to_dev, state)
+        self._abs_pos = np.asarray(meta["abs_pos"], np.float64)
+        self._cursor = int(meta["cursor"])
+        for i, (st, prn, _started) in enumerate(meta["slots"]):
+            s = self.slots[i]
+            s.state = SlotState(st)
+            s.prn = int(prn)
+            s.bad_epochs = 0
+            # Epoch labels restart at 0 in the resumed run.
+            s.started_ms = 0
+            if s.state is SlotState.IDLE or not s.prn:
+                continue
+            # The slot's code tables / consts and a fresh history (the
+            # saved accumulator and blocks_seen keep carrier phase and
+            # the absolute block index continuous across the gap).
+            self.eng.write_slot(self._bank, i, s.prn)
+            dopp0 = float(self._state.corr.carr_delta[i]) if hasattr(
+                self._state.corr, "carr_delta") else 0.0
+            saved = (meta.get("cph") or {}).get(str(s.prn))
+            hist = self._new_history(
+                i, start_ms=0,
+                doppler_hz=saved["last_delta"] if saved else dopp0,
+                evicted=int(saved["blocks_seen"]) if saved else 0)
+            if saved:
+                hist["_cph"].acc = int(saved["acc"])
+                hist["_cph"].base = int(saved["base"])
+            self.history[s.prn] = hist
+        self._bank_dev = None      # re-upload the rebuilt bank
+        return meta
 
     # --- history accessors ---
 

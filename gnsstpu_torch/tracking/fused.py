@@ -72,7 +72,7 @@ def kernel_kwargs(sig: SignalConfig, trk: TrackConfig, *, n_blocks: int,
         spacing=float(trk.el_spacing),
         span_chips=fused_span_chips(sig, trk, phases_per_chip),
         base_code_step=float(np.float64(sig.code_freq) / sig.fs),
-        fs=float(sig.fs), coefs=loop_coefs(trk))
+        fs=float(sig.fs), coefs=loop_coefs(trk), fll_disc=trk.fll_disc)
 
 
 def kernel_inputs(chunk, codes_tab, consts, state: TrackState) -> tuple:

@@ -2,7 +2,8 @@
 
 gnsstpu_torch carries its own copy of every gnsstpu module that it or
 chip_smoke.py reaches (config, signal definitions, code tables, nav
-decode and PVT, the online navigator, telemetry, the command console).
+decode and PVT, the online navigator, telemetry, the command console, the
+checkpoint file format).
 Each copy is the origin verbatim except for the import prefix
 (`gnsstpu.` -> `gnsstpu_torch.` on import lines) and one docstring line
 naming the origin. test_copies_match_their_origin is the drift guard: a
@@ -34,6 +35,7 @@ COPIES = (
     "nav/ekf.py", "nav/almanac.py", "nav/visibility.py", "nav/glonass.py",
     "nav/beidou.py", "nav/galileo.py", "nav/viterbi.py", "nav/glonass_l3.py",
     "runtime/navigator.py", "runtime/telemetry.py", "runtime/console.py",
+    "runtime/checkpoint.py",
 )
 #: Binary data copied byte for byte.
 DATA = ("signals/data/galileo_e1_codes.npz",)

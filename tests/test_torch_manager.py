@@ -112,14 +112,26 @@ def test_fused_manager_matches_reference(samples):
                                    rtol=0, atol=0.05)
 
 
-def test_unported_options_raise(samples):
+def test_unported_options_raise(samples, tmp_path):
+    """A mesh is the one part of the manager not ported: it raises. A
+    checkpoint of another signal is refused; a weak ('sum') tier no longer
+    raises: a chunk too short for its search starts the accumulation."""
     src = TPacked(samples, fmt="sm2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TManager(src, to_port(_cfg()), device="cpu", mesh=object())
     mgr = TManager(src, to_port(_cfg()), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mgr.save_checkpoint("unused.npz")
-    weak = ReceiverConfig(signal=SIG, acq=AcqConfig().weak(),
+    path = str(tmp_path / "bank.npz")
+    mgr.save_checkpoint(path)
+    gal = SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
+                       code_freq=2.046e6, code_length=8184)
+    other = TManager(src, to_port(ReceiverConfig(signal=gal, n_channels=3)),
+                     device="cpu")
+    with pytest.raises(ValueError, match="gps_l1ca"):
+        other.restore_checkpoint(path)
+    weak = ReceiverConfig(signal=SIG, acq=AcqConfig(doppler_band=1e3).weak(),
                           track=TrackConfig(), n_channels=3)
-    with pytest.raises(NotImplementedError, match="weak-tier"):
-        TManager(src, to_port(weak), device="cpu")._wk_step()
+    wm = TManager(src, to_port(weak), device="cpu", epoch_ms=100)
+    assert wm._chunk_len < wm._acq_samples_needed_chunk()
+    chunk = wm._to_device(src.read_packed(0, wm._chunk_len))
+    assert wm._wk_step(chunk, 0, wm._chunk_len)[0] == "pending"
+    assert wm._acq_wk["done"] == 9          # 10 ms windows in 100 ms

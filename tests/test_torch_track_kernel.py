@@ -10,7 +10,9 @@ remainder 5e-4 chip, carrier phase within one LSB step flip per block.
 K1's tap table is int8 (fused_tap_rows): the reference's +-1 rows on
 lanes [0, blkp), zeros up to plane_stride(blkp). K1 is held to the
 reference at GPS L1 C/A 2.048 Msps and at BeiDou B1I 4.096 Msps, whose
-4,098-sample blocks the first CUDA K1 refused.
+4,098-sample blocks the first CUDA K1 refused. Its 'atan' FLL (BeiDou's
+live loop; the reference's kernel has 'atan2' only) is checked to ignore
+whole-block sign flips.
 
 K2's and K3's cluster split (cluster_split) is checked here for the
 channel counts and block lengths the port runs and beyond.
@@ -18,6 +20,8 @@ channel counts and block lengths the port runs and beyond.
 The CUDA kernel itself is compared with the twin by the tests marked
 `cuda` (skipped without a card) and by chip_smoke.py on the H100.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -118,6 +122,91 @@ def test_port_fused_matches_reference_beidou_4096():
     """BeiDou B1I at 4.096 Msps: 4,098-sample blocks."""
     assert BSIG.samples_per_code + 2 == 4098
     _port_vs_reference(2, 4, BSIG, BTRK)
+
+
+def _flip_blocks(chunk, cp, blksize, sign):
+    """chunk with each tracked block (from sample cp on) times its sign."""
+    starts = cp + np.concatenate([[0], np.cumsum(blksize)[:-1]])
+    out = chunk.copy()
+    for s0, n, s in zip(starts, blksize, sign):
+        out[s0:s0 + n] *= s
+    return out
+
+
+@pytest.mark.parametrize("flips", [False, True])
+def test_k1_atan_fll_matches_reference_scan(flips):
+    """K1's 'atan' FLL (the live BeiDou loop's) against the reference's
+    scan tracker in table mode (gnsstpu/tracking/scan.py, the engine whose
+    1/64-chip rows K1 shares), at BeiDou B1I 4.096 Msps, on the plain
+    signal and with whole blocks negated as NH(20) does:
+    test_track_kernel.py's fused-vs-scan tolerances."""
+    from gnsstpu.ops import code_tables as jtables
+
+    n_blocks = 8
+    trk = dataclasses.replace(BTRK, fll_disc="atan")
+    prns, chunk, tab, cb, ia, cp, dp = _setup(2, n_blocks, BSIG, trk)
+    spc = BSIG.samples_per_code
+    rows = jtables.phase_row_table(BSIG.signal, BSIG.fs, BSIG.code_freq,
+                                   BSIG.code_length, spc + 2)
+    codes = jnp.asarray(np.stack([rows[p - 1] for p in prns]))
+    ref = jscan.make_tracker(BSIG, trk, n_blocks=n_blocks, code_mode="table")
+    consts = (jnp.asarray(cb), jnp.asarray(ia))
+
+    def run_ref(x):
+        st0 = jax.tree.map(jnp.asarray, jscan.TrackState.init(cp, dp))
+        return ref(jnp.asarray(x), codes, consts, st0)
+
+    if flips:
+        # Both channels' blocks share one length here; flip on channel 0's.
+        blk = np.asarray(run_ref(chunk)[1].blksize)[:, 0]
+        sign = np.array([1, -1, -1, 1, -1, 1, 1, -1], np.float32)
+        chunk = _flip_blocks(chunk, cp[0], blk, sign)
+    ref_state, ref_out = run_ref(chunk)
+    port = tfused.make_fused_tracker(to_port(BSIG), to_port(trk),
+                                     n_blocks=n_blocks)
+    got_state, got_out = port(
+        torch.tensor(chunk), torch.tensor(tfused.fused_tap_rows(tab)),
+        (u32_tensor(cb, CPU), torch.tensor(ia)),
+        tscan.TrackState.init(cp, dp, device=CPU))
+    _compare(got_state, got_out, ref_state, ref_out, n_blocks, BSIG)
+
+
+@pytest.mark.parametrize("fll_disc", ["atan", "atan2"])
+def test_k1_atan_fll_ignores_block_sign_flips(fll_disc):
+    """BeiDou D1's NH(20) code flips the symbol between 1 ms blocks. With
+    fll_disc 'atan' (the live BeiDou loop's) K1's loop is blind to such
+    flips: with whole blocks of the signal negated, every loop output is
+    bit-identical and the accumulators only change sign. The
+    four-quadrant 'atan2' FLL, the only one the reference's kernel has,
+    reads each flip as a frequency error and its loop moves."""
+    n_blocks = 8
+    trk = to_port(TrackConfig(dll_bw=1.5, pll_bw=25.0, fll_bw=150.0,
+                              fll_disc=fll_disc,
+                              aid_div=1561.098e6 / 2.046e6))
+    prns, chunk, tab, cb, ia, cp, dp = _setup(1, n_blocks, BSIG, BTRK)
+    kw = tfused.kernel_kwargs(to_port(BSIG), trk, n_blocks=n_blocks)
+    assert kw["fll_disc"] == fll_disc
+    rows = torch.tensor(tfused.fused_tap_rows(tab))
+    consts = (u32_tensor(cb, CPU), torch.tensor(ia))
+
+    def run(x):
+        st0 = tscan.TrackState.init(cp, dp, device=CPU)
+        return tk.track_chunk_fused(*tfused.kernel_inputs(
+            torch.tensor(x), rows, consts, st0), **kw)[0].numpy()
+
+    out = run(chunk)
+    sign = np.array([1, -1, -1, 1, -1, 1, 1, -1], np.float32)
+    got = run(_flip_blocks(chunk, cp[0],
+                           out[:, 0, tk.O_BLKSIZE].astype(np.int64), sign))
+    accs = [tk.O_IE, tk.O_QE, tk.O_IP, tk.O_QP, tk.O_IL, tk.O_QL]
+    loop = [j for j in range(tk.NOUT) if j not in accs]
+    if fll_disc == "atan":
+        np.testing.assert_array_equal(got[..., loop], out[..., loop])
+        np.testing.assert_array_equal(got[..., accs],
+                                      sign[:, None, None] * out[..., accs])
+    else:
+        assert np.any(got[:, 0, tk.O_CARR_DOPPLER]
+                      != out[:, 0, tk.O_CARR_DOPPLER])
 
 
 @pytest.mark.parametrize("sig,trk", [(SIG, TRK), (BSIG, BTRK)])
@@ -237,10 +326,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sig,trk", [(SIG, TRK), (BSIG, BTRK)])
+@pytest.mark.parametrize("sig,trk", [
+    (SIG, TRK), (BSIG, BTRK),
+    (BSIG, TrackConfig(dll_bw=1.5, pll_bw=25.0, fll_bw=150.0,
+                       fll_disc="atan", aid_div=1561.098e6 / 2.046e6))])
 def test_cuda_kernel_matches_plain_twin(cuda_device, sig, trk):
     """K1 on the card against its twin at GPS (blkp 2,050) and BeiDou
-    4.096 Msps (blkp 4,098), and two launches bit-identical."""
+    4.096 Msps (blkp 4,098, with each FLL), and two launches
+    bit-identical."""
     C, n_blocks = 4, 12
     prns, chunk, tab, cb, ia, cp, dp = _setup(C, n_blocks, sig, trk)
     rows = tfused.fused_tap_rows(tab)
