@@ -4,7 +4,9 @@
 
 Drives the port's five live receiver paths once on the card, through the
 entry points a user calls, each with a sky and signal made by the port's
-simulator from a fixed seed:
+simulator from a fixed seed, then the live front end (phases 19-21: the
+GPS path over TCP with the ring FIFO and a remote station, a 16 Msps
+stream resampled on the card, and the command line):
   * GPS L1 C/A at the benchmark configuration (bench.py::bench_manager):
     2.048 Msps complex, 12 channels over an 11-satellite geometry-true sky
     plus 2 absent PRNs in the pool, 500 ms epochs, 8-epoch superepochs,
@@ -108,8 +110,39 @@ Phases (each prints one line; any failure raises and exits non-zero):
      checkpoint (tests/test_runtime.py:252-325: save, restore into a new
      manager, resume with no channel start, carrier-phase accumulators
      equal to an uninterrupted run's);
- 18. K1's launches on each of its three live paths;
-then the kernel record (K1's launches summed over its three paths), the
+ 19. gps_l1_tcp_live_12ch: phase 5's configuration and signal fed as a
+     radio feeds it: a sender thread writes the 2-bit sm2 bytes to a
+     TcpStreamProducer on loopback at 8 x real time, through the port's
+     RingFifo (built with g++ from csrc/host/ring_fifo.cpp) into a
+     PackedStreamSource (history and FIFO two chunks deep), uploaded
+     packed; a StationServer fans the telemetry out to a StationSocket
+     client, which masks an absent PRN after 3 fixes. Phase 5's limits
+     (live channels at the last epoch inside the signal), 0 overruns,
+     blocks pushed = blocks sent, the run ended by the producer's end of
+     stream, the client's channel and PVT records and its command's
+     command_ok with the PRN out of the pool, K1 only, no JAX; the
+     stage walls, the FIFO's peak fill and K1's share of the wall;
+ 20. gps_l1_16msps_resampled_12ch: the same sky at the custom front end's
+     16 Msps complex (IF 0), 8 s written as i8_iq to a temporary file, a
+     FileStreamProducer resampling each 1 ms block to 2.048 Msps on the
+     card (polyphase, K = 250, its own CUDA stream) into a StreamSource,
+     the manager at 12 channels (K1, 100 ms epochs x 4): live >= 10 of
+     11, every live channel's Doppler within 5 Hz of truth, no absent PRN
+     confirmed; the apply's ms per 1 ms and 100 ms block (CUDA events),
+     its transient memory and its error against a float64 direct sum
+     (RESAMPLE_TOL of the input's peak); the nearest mode exact; K1 per
+     launch alone and beside a running producer (CUDA events, and its
+     kernel time from a profiler trace, within 20%);
+ 21. the CLI on the card: `python -m gnsstpu_torch track --listen tcp:0
+     --listen-fmt sm2 --station-port 0 --profile DIR --log LOG` on a
+     3-SV sky sent to its banner's port, `python -m gnsstpu_torch
+     monitor tcp://127.0.0.1:PORT --follow` beside it: the banner, the
+     sky's PRNs live at the end, a board and exit 0 when the receiver
+     closes the link, and a torch.profiler trace naming K1's __global__
+     function;
+ 18. (printed after 21) K1's launches on each of its five paths in this
+     process;
+then the kernel record (K1's launches summed over those paths), the
 nvidia-smi line and the result line.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s (the chunk,
@@ -128,9 +161,11 @@ import dataclasses
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -142,12 +177,21 @@ from gnsstpu_torch.acquisition import search
 from gnsstpu_torch.device import u32_numpy, u32_tensor
 from gnsstpu_torch.nav import glonass_l3 as l3nav
 from gnsstpu_torch.nav.viterbi import conv_encode, viterbi_decode
+from gnsstpu_torch import native
 from gnsstpu_torch.ops import fft_acquire, nco
+from gnsstpu_torch.ops import resample as rs
 from gnsstpu_torch.ops import track_kernel as tk
+from gnsstpu_torch.ops import unpack as up
+from gnsstpu_torch.ops.resample import ResampledSource
 from gnsstpu_torch.runtime import OnlineNavigator, Telemetry
 from gnsstpu_torch.runtime.manager import ChannelManager
+from gnsstpu_torch.runtime.remote import StationServer, StationSocket
 from gnsstpu_torch.runtime.sources import (ArraySource,
-                                           DevicePackedArraySource)
+                                           DevicePackedArraySource,
+                                           FileSource, FileStreamProducer,
+                                           PackedStreamSource,
+                                           StreamSource, TcpStreamProducer,
+                                           stream_blocks)
 from gnsstpu_torch.sim import IFSimulator, SatParams
 from gnsstpu_torch.signals import galileo_e1, glonass_l3
 from gnsstpu_torch.signals.registry import get_signal
@@ -564,25 +608,42 @@ def device_signal(sig, sats, n_ms: int, seed: int, device,
     return DevicePackedArraySource(buf, fmt="sm2", scale=1.0, device=device)
 
 
-def gps_main_path(device) -> dict:
-    """The bench_manager configuration through the port's manager."""
-    seconds, n_channels, epoch_ms, sync_every = 44, 12, 500, 8
-    n_ms = seconds * 1000
-    sats, prns, recv = bench_constellation(SIG, n_channels - 1,
-                                           duration_s=seconds + 1.0)
-    t0 = time.perf_counter()
-    src = device_signal(SIG, sats, n_ms + 800, 3, device)
-    setup_s = time.perf_counter() - t0
+#: The GPS main path's configuration (bench.py::bench_manager): seconds
+#: of signal measured past the warm-up, 12 channels, 500 ms epochs x 8.
+GPS_SECONDS, GPS_CHANNELS, GPS_EPOCH_MS, GPS_SYNC = 44, 12, 500, 8
+
+
+def gps_sky(sig=SIG) -> tuple:
+    """(sats, sky PRNs, receiver ECEF, absent PRNs) of the GPS main path:
+    bench_constellation's 11 highest SVs plus 2 PRNs not in the sky."""
+    sats, prns, recv = bench_constellation(sig, GPS_CHANNELS - 1,
+                                           duration_s=GPS_SECONDS + 1.0)
     absent = [p for p in range(1, 33) if p not in prns][:2]
-    pool = prns + absent
-    cfg = ReceiverConfig(
-        signal=SIG,
+    return sats, prns, recv, absent
+
+
+def gps_config(pool, sig=SIG) -> ReceiverConfig:
+    return ReceiverConfig(
+        signal=sig,
         acq=AcqConfig(doppler_band=8e3, coherent_ms=2, threshold=2.4,
                       prn_list=tuple(pool)),
         track=TRK,
         nav=NavConfig(sol_period_ms=1000, elevation_mask_deg=5.0,
                       use_tropo=False),
-        n_channels=n_channels)
+        n_channels=GPS_CHANNELS)
+
+
+def gps_main_path(device) -> tuple:
+    """The bench_manager configuration through the port's manager.
+    Returns (results, the signal's sm2 bytes)."""
+    seconds, epoch_ms, sync_every = GPS_SECONDS, GPS_EPOCH_MS, GPS_SYNC
+    n_ms = seconds * 1000
+    sats, prns, recv, absent = gps_sky()
+    t0 = time.perf_counter()
+    src = device_signal(SIG, sats, n_ms + 800, 3, device)
+    setup_s = time.perf_counter() - t0
+    pool = prns + absent
+    cfg = gps_config(pool)
     navr = OnlineNavigator(SIG, cfg.nav, mode="lsq")
     coll = _Collector()
     tlm = Telemetry(sink=None)
@@ -623,7 +684,7 @@ def gps_main_path(device) -> dict:
         _, lat, lon, h, nsv = coll.pvt[-1]
         res["last_fix_err_m"] = position_error_m(lat, lon, h, recv)
         res["n_sv_last"] = int(nsv)
-    return res
+    return res, src.packed
 
 
 def k2_inputs(C: int, n_blocks: int, device):
@@ -1295,6 +1356,626 @@ def _state_leaves(tree):
     return [tree]
 
 
+class _PeakFill(threading.Thread):
+    """Samples a RingFifo's fill every 5 ms until stopped; .peak is the
+    most blocks it held."""
+
+    def __init__(self, fifo):
+        super().__init__(daemon=True)
+        self.fifo, self.peak = fifo, 0
+        self.halt = threading.Event()
+
+    def run(self):
+        while not self.halt.wait(0.005):
+            self.peak = max(self.peak, self.fifo.stats()["count"])
+
+
+class _StationClient(threading.Thread):
+    """A station on loopback: reads the receiver's records through a
+    StationSocket, counts them by type and, once `after_pvt` fixes have
+    arrived, sends one command."""
+
+    def __init__(self, port: int, command: dict, after_pvt: int):
+        super().__init__(daemon=True)
+        self.link = StationSocket("127.0.0.1", port)
+        self.command, self.after_pvt = command, after_pvt
+        self.counts: dict = {}
+        self.sent_after_ms = None
+        self.halt = threading.Event()
+
+    def run(self):
+        try:
+            while not self.halt.wait(0.02):
+                for line in self.link.read_lines():
+                    rec = json.loads(line)
+                    t = rec.get("type")
+                    self.counts[t] = self.counts.get(t, 0) + 1
+                    if (t == "pvt" and self.sent_after_ms is None
+                            and self.counts[t] >= self.after_pvt):
+                        self.link.send_command(self.command)
+                        self.sent_after_ms = rec["epoch_ms"]
+                if self.link.closed:
+                    return
+        finally:
+            self.link.close()
+
+
+def _send_paced(port: int, wire: bytes, bps: float, piece: int) -> None:
+    """Send `wire` over TCP in `piece`-byte writes, paced at `bps` bytes a
+    second, then close (the producer's end of stream)."""
+    tx = socket.create_connection(("127.0.0.1", port), timeout=30.0)
+    try:
+        t0 = time.monotonic()
+        for i in range(0, len(wire), piece):
+            dt = t0 + i / bps - time.monotonic()
+            if dt > 0:
+                time.sleep(dt)
+            tx.sendall(wire[i: i + piece])
+    finally:
+        tx.close()
+
+
+def history_blocks(sig, epoch_ms: int, sync_every: int, wire) -> int:
+    """A live stream's history and FIFO depth in blocks, as the port's
+    CLI sizes them for a prefetching manager (sources.stream_blocks)."""
+    chunk = ChannelManager.chunk_samples(sig, epoch_ms,
+                                         sync_every=sync_every,
+                                         prefetch=True, wire=wire)
+    return stream_blocks(chunk, sig.samples_per_code)
+
+
+def gps_tcp_live_path(device, wire: np.ndarray, k1_ms: float,
+                      pace: float = 8.0) -> dict:
+    """gps_l1_tcp_live_12ch: the GPS main path's configuration fed as a
+    radio feeds it: a sender thread writes the signal's 2-bit sm2 bytes
+    to a TcpStreamProducer(raw=True) on loopback at `pace` x real time;
+    the bytes cross the port's RingFifo into a PackedStreamSource and
+    the manager uploads them packed. A StationServer fans the telemetry
+    out to a StationSocket client, which masks an absent PRN after 3
+    fixes. The run ends on the producer's end of stream."""
+    sats, prns, recv, absent = gps_sky()
+    pool = prns + absent
+    cfg = gps_config(pool)
+    epoch_ms, sync_every = GPS_EPOCH_MS, GPS_SYNC
+    blk = SIG.samples_per_code
+    bpb = up.wire_bytes("sm2", blk)
+    blocks = history_blocks(SIG, epoch_ms, sync_every, "sm2")
+    wire = np.asarray(wire, np.uint8)
+    n_sent = len(wire) // bpb
+    wire = wire[: n_sent * bpb].tobytes()
+    signal_ms = n_sent * blk * 1000 // int(SIG.fs)
+    fifo = native.RingFifo(depth=blocks, block_bytes=bpb)
+    prod = TcpStreamProducer(fifo, blk, fmt="sm2", raw=True,
+                             timeout_s=60.0).start()
+    src = PackedStreamSource(fifo, blk, fmt="sm2", history_blocks=blocks,
+                             timeout_s=60.0)
+    navr = OnlineNavigator(SIG, cfg.nav, mode="lsq")
+    coll = _Collector()
+    tlm = Telemetry(sink=None)
+    tlm.subscribe(coll)
+    srv = StationServer()
+    srv.attach(tlm)
+    mask_prn = absent[0]
+    client = _StationClient(srv.port, {"cmd": "mask", "prn": mask_prn},
+                            after_pvt=3)
+    sender = threading.Thread(
+        target=_send_paced, args=(prod.port, wire, pace * bpb * 1000.0,
+                                  64 * bpb), daemon=True)
+    fill = _PeakFill(fifo)
+    t_setup = time.perf_counter()
+    try:
+        client.start()
+        deadline = time.monotonic() + 10.0
+        while srv.n_clients() < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("station client never connected")
+            time.sleep(0.01)
+        tk.reset_launches()
+        mgr = ChannelManager(
+            src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
+            reacq_period_ms=1000, sync_every=sync_every, navigator=navr,
+            prn_pool=list(pool), prefetch=True, readback="compact",
+            history_window_ms=36_000, engine="fused",
+            commands=srv.commands)
+        fill.start()
+        sender.start()
+        warm_ms = 2 * sync_every * epoch_ms
+        mgr.run(warm_ms)
+        k1_warm = tk.LAUNCHES["track_chunk_fused"]
+        ms0 = mgr.clock_ms
+        coll.enabled = True
+        t0 = time.perf_counter()
+        recs = mgr.run(10 * signal_ms)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        coll.enabled = False
+        sender.join(timeout=60.0)
+        if sender.is_alive():
+            raise AssertionError("sender thread did not finish")
+    finally:
+        fill.halt.set()
+        prod.stop()
+        srv.close()
+        client.halt.set()
+        for t in (fill, client, sender):
+            if t.ident is not None:
+                t.join(timeout=30.0)
+        prod.thread.join(timeout=30.0)
+    launches = dict(tk.LAUNCHES)
+    wall = t1 - t0
+    k1_meas = launches["track_chunk_fused"] - k1_warm
+    stats = fifo.stats()
+    inside = [r for r in recs if r.epoch_ms + epoch_ms <= signal_ms]
+    res = {
+        "realtime_factor_overall": (mgr.clock_ms - ms0) / 1000.0 / wall,
+        "pace_x_realtime": pace,
+        "measured_ms": mgr.clock_ms - ms0,
+        "wall_s": wall,
+        "setup_s": t0 - t_setup,
+        "signal_ms": signal_ms,
+        "blocks_sent": n_sent,
+        "fifo": stats,
+        "producer_overruns": prod.overruns,
+        "fifo_depth_blocks": blocks,
+        "fifo_peak_fill_blocks": fill.peak,
+        "history_blocks": blocks,
+        "chunk_samples": mgr._chunk_len,
+        "ended_on_end_of_stream": any(
+            e["what"] == "end_of_data" for e in coll.events)
+        and src.ended_at(src.position()),
+        "engine": mgr.engine,
+        "live_channels_at_last_epoch_in_signal": int(
+            sum(1 for p in inside[-1].prn if p)) if inside else 0,
+        "last_epoch_in_signal_ms": inside[-1].epoch_ms if inside else None,
+        "ephemerides_decoded": len(navr.decoded),
+        "station_records": dict(sorted(client.counts.items())),
+        "mask_prn": mask_prn,
+        "mask_sent_after_fix_at_ms": client.sent_after_ms,
+        "mask_command_ok": [e["epoch_ms"] for e in coll.events
+                            if e["what"] == "command_ok"
+                            and "mask" in e.get("raw", "")],
+        "mask_prn_in_pool": mask_prn in mgr.pool,
+        "k1_launches": launches["track_chunk_fused"],
+        "k1_launches_measured": k1_meas,
+        "k1_share_of_wall": k1_meas * k1_ms * 1e-3 / wall,
+        "k2_launches": launches["track_chunk_boc_fused"],
+        "k3_launches": launches["track_chunk_dual_fused"],
+        "stage_wall_s": {k: round(v, 4) for k, v in
+                         sorted(coll.stages.items())},
+    }
+    # The last superepoch runs past the end of the stream on zero bytes:
+    # fixes (as live channels) are read inside the signal.
+    fixes = [f for f in coll.pvt if f[0] + epoch_ms <= signal_ms]
+    res["pvt_solutions"] = len(fixes)
+    res["pvt_solutions_past_the_end"] = len(coll.pvt) - len(fixes)
+    if fixes:
+        t_fix, lat, lon, h, _ = fixes[-1]
+        res["last_fix_ms"] = t_fix
+        res["last_fix_err_m"] = position_error_m(lat, lon, h, recv)
+    if len(fixes) < len(coll.pvt):
+        _, lat, lon, h, _ = coll.pvt[-1]
+        res["fix_err_m_past_the_end"] = position_error_m(lat, lon, h, recv)
+    return res
+
+
+def gps_tcp_checks(res: dict) -> None:
+    refused = refused_modules()
+    st = res["station_records"]
+    checks = {
+        "live channels >= 10": res["live_channels_at_last_epoch_in_signal"]
+        >= 10,
+        "ephemerides_decoded >= 8": res["ephemerides_decoded"] >= 8,
+        "pvt_solutions >= 10": res["pvt_solutions"] >= 10,
+        "last_fix_err_m < 100": res.get("last_fix_err_m", 1e9) < 100.0,
+        "FIFO overruns = 0": (res["fifo"]["overruns"] == 0
+                              and res["producer_overruns"] == 0),
+        "blocks pushed = blocks sent":
+            res["fifo"]["pushed"] == res["blocks_sent"],
+        "the run ends on the producer's end of stream":
+            res["ended_on_end_of_stream"],
+        "the client got channel and PVT records":
+            st.get("channel_health", 0) > 0 and st.get("pvt", 0) > 0,
+        "the client's mask took effect": (
+            res["mask_sent_after_fix_at_ms"] is not None
+            and len(res["mask_command_ok"]) == 1
+            and not res["mask_prn_in_pool"]),
+        "k1_launches > 0, K2 and K3 none": (res["k1_launches"] > 0
+                                            and res["k2_launches"] == 0
+                                            and res["k3_launches"] == 0),
+        "no jax or gnsstpu module loaded": not refused,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gps_l1_tcp_live_12ch checks failed: "
+                             f"{failed} (modules: {refused[:5]})")
+
+
+#: The custom MAX2769 front end's rate (SURVEY.md:527, BASELINE.md:11; the
+#: CLI's default --fs), complex at IF 0 so that its 2.048 Msps image holds
+#: the whole C/A band.
+FS16 = 16.0e6
+SIG16 = SignalConfig(if_freq=0.0, fs=FS16, complex_iq=True)
+
+
+def write_i8_file(sig, sats, n_ms: int, seed: int, device, path: str,
+                  scale: float = 20.0, piece_ms: int = 500) -> None:
+    """n_ms of the port simulator's signal as an i8_iq file, made on the
+    card in pieces."""
+    sim = IFSimulator(sig, sats, noise_sigma=1.0, seed=seed, device=device)
+    with open(path, "wb") as f:
+        for ms0 in range(0, n_ms, piece_ms):
+            x = sim.generate_tensor(min(piece_ms, n_ms - ms0), ms0)
+            q = torch.clamp(torch.round(x * scale), -127, 127).to(
+                torch.int8)
+            q.cpu().numpy().reshape(-1).tofile(f)
+
+
+def resample_apply_check(device, path: str, count: int) -> dict:
+    """The polyphase apply at 16 -> 2.048 Msps on the card for `count`
+    outputs of the i8_iq file at `path`: CUDA-event ms, peak device
+    memory beyond what was allocated, and the largest error against a
+    float64 numpy direct sum of the same window over the input's peak."""
+    bank = rs.PolyphaseBank(*rs.rational_ratio(FS16, SIG.fs))
+    base, w = bank.window(10_000, count)
+    lo = int(base.min())
+    x = FileSource(path, fmt="i8_iq").read(lo, int(base.max()) + bank.K
+                                           - lo)
+    xt = torch.as_tensor(x, device=device)
+    rel = torch.as_tensor(base - lo, device=device)
+    wt = torch.as_tensor(w, device=device)
+    out = rs.apply_window(xt, rel, wt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    reps = 20 if count <= 4096 else 5
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        rs.apply_window(xt, rel, wt)
+    e1.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - before
+    idx = (base - lo)[:, None] + np.arange(bank.K)[None, :]
+    ref = np.einsum("nk,nkc->nc", w.astype(np.float64),
+                    x.astype(np.float64)[idx])
+    err = float(np.max(np.abs(out.cpu().numpy() - ref)))
+    return {"outputs": count, "K": bank.K, "ms": e0.elapsed_time(e1) / reps,
+            "peak_mib": peak / 2**20,
+            "max_abs_err_over_peak": err / float(np.abs(x).max())}
+
+
+def k1_kernel_us(inputs, reps: int) -> float:
+    """K1's mean device time per launch in us from a torch.profiler
+    trace of `reps` launches: the kernel's own duration, whatever the
+    host's pace of issuing them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args, kw = inputs
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            tk.track_chunk_fused(*args, **kw)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "k1.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = [float(e["dur"]) for e in events
+            if e.get("cat") == "kernel" and K1_GLOBAL in e.get("name", "")]
+    if len(durs) != reps:
+        raise AssertionError(f"profiler saw {len(durs)} of {reps} K1 "
+                             "launches")
+    return float(np.mean(durs))
+
+
+def k1_beside_producer(device, path: str, reps: int = 1000) -> dict:
+    """K1 per C=12 x 100-block launch alone, then while a
+    FileStreamProducer resamples the 16 Msps file on its own stream into
+    a FIFO nobody drains: the CUDA-event ms per launch on the default
+    stream (which also counts the host's pace of issuing launches) and
+    the kernel's device time from a profiler trace."""
+    inputs = k1_inputs(12, 100, device)
+    idle = kernel_times(inputs, tk.track_chunk_fused, None, reps)[0]
+    idle_us = k1_kernel_us(inputs, 200)
+    blk = SIG.samples_per_code
+    fifo = native.RingFifo(depth=4096, block_bytes=blk * 8)
+    prod = FileStreamProducer(path, fifo, blk, fmt="i8_iq", fs_in=FS16,
+                              fs_out=SIG.fs, device=device)
+    try:
+        prod.start()
+        deadline = time.monotonic() + 30.0
+        while fifo.stats()["pushed"] < 20:
+            if time.monotonic() > deadline:
+                raise AssertionError("the producer pushed nothing")
+            time.sleep(0.005)
+        n0 = fifo.stats()["pushed"]
+        busy = kernel_times(inputs, tk.track_chunk_fused, None, reps)[0]
+        busy_us = k1_kernel_us(inputs, 200)
+        n1 = fifo.stats()["pushed"]
+    finally:
+        prod.stop()
+        fifo.close()
+        prod.thread.join(timeout=30.0)
+    return {"event_ms_alone": idle, "event_ms_beside_producer": busy,
+            "kernel_us_alone": idle_us,
+            "kernel_us_beside_producer": busy_us,
+            "blocks_resampled_meanwhile": n1 - n0}
+
+
+def gps_resampled_path(device, k1_ms: float, seconds: float = 8.0) -> dict:
+    """gps_l1_16msps_resampled_12ch: the GPS sky at the custom front end's
+    16 Msps complex, written as i8_iq to a temporary file; a
+    FileStreamProducer resamples each 1 ms block to 2.048 Msps on the
+    card (polyphase, its own CUDA stream) into the ring FIFO; a
+    StreamSource feeds the manager at 12 channels (K1), 100 ms epochs x 4
+    with prefetch, no navigator (8 s holds no ephemeris). Also the
+    apply's time, memory and parity on the card, and the nearest mode
+    exact."""
+    sats16, prns, _, absent = gps_sky(SIG16)
+    pool = prns + absent
+    n_ms = int(round(seconds * 1000))
+    epoch_ms, sync_every = 100, 4
+    blk = SIG.samples_per_code
+    blocks = history_blocks(SIG, epoch_ms, sync_every, None)
+    cfg = gps_config(pool)
+    # 10 ms fine Doppler (the CLI's default) hands over within a few Hz:
+    # a coarse 250 Hz bin leaves slots the FLL pulls in only after
+    # they fail confirmation, past this path's 8 s.
+    cfg = dataclasses.replace(cfg, acq=dataclasses.replace(
+        cfg.acq, fine_doppler_ms=10))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gps16.i8")
+        t0 = time.perf_counter()
+        write_i8_file(SIG16, sats16, n_ms + 300, 21, device, path)
+        setup_s = time.perf_counter() - t0
+        apply_1ms = resample_apply_check(device, path, blk)
+        apply_100ms = resample_apply_check(device, path, 100 * blk)
+        k1_beside = k1_beside_producer(device, path)
+        near = ResampledSource(FileSource(path, fmt="i8_iq"), FS16, SIG.fs,
+                               mode="nearest", device=device)
+        idx = rs.nearest_indices(FS16, SIG.fs, 777, 5000)
+        raw = FileSource(path, fmt="i8_iq").read(0, int(idx[-1]) + 1)
+        nearest_exact = bool(np.array_equal(
+            near.read(777, 5000), raw[idx]))
+        fifo = native.RingFifo(depth=blocks, block_bytes=blk * 8)
+        coll = _Collector()
+        tlm = Telemetry(sink=None)
+        tlm.subscribe(coll)
+        prod = FileStreamProducer(path, fifo, blk, fmt="i8_iq", fs_in=FS16,
+                                  fs_out=SIG.fs, resample_mode="polyphase",
+                                  device=device)
+        try:
+            src = StreamSource(fifo, blk, history_blocks=blocks,
+                               timeout_s=60.0)
+            tk.reset_launches()
+            mgr = ChannelManager(
+                src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
+                reacq_period_ms=1000, sync_every=sync_every,
+                prn_pool=list(pool), prefetch=True, readback="compact",
+                engine="fused")
+            coll.enabled = True
+            t0 = time.perf_counter()
+            prod.start()
+            recs = mgr.run(n_ms)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            coll.enabled = False
+        finally:
+            prod.stop()
+            fifo.close()
+            prod.thread.join(timeout=30.0)
+        if prod.thread.is_alive():
+            raise AssertionError("file producer thread did not stop")
+    launches = dict(tk.LAUNCHES)
+    t_end = mgr.clock_ms * 1e-3
+    sky = {}
+    for s in sats16:
+        slot = next((i for i, sl in enumerate(mgr.slots)
+                     if sl.prn == s.prn and sl.state.value == "tracking"),
+                    None)
+        row = {"slot": slot}
+        if slot is not None:
+            h = mgr.prompt_stream(s.prn)
+            row["doppler_err_hz"] = float(
+                h["carr_doppler"][-epoch_ms:].mean()
+                - (s.doppler_hz + s.doppler_rate
+                   * (t_end - 0.5 * epoch_ms * 1e-3)))
+            row["cn0_dbhz"] = float(recs[-1].cn0_dbhz[slot])
+        sky[int(s.prn)] = row
+    wall = t1 - t0
+    return {
+        "signal_s": seconds,
+        "realtime_factor_overall": n_ms / 1000.0 / wall,
+        "wall_s": wall,
+        "signal_setup_s": setup_s,
+        "taps_per_phase": prod.src.bank.K,
+        "p_q": [prod.src.p, prod.src.q],
+        "apply_1ms_block": apply_1ms,
+        "apply_100ms_block": apply_100ms,
+        "k1_ms_beside_producer": k1_beside,
+        "nearest_exact": nearest_exact,
+        "fifo": fifo.stats(),
+        "engine": mgr.engine,
+        "sky_prns": sorted(prns),
+        "absent_prns": absent,
+        "live_channels_at_end": int(sum(1 for p in recs[-1].prn if p)),
+        "confirmed_prns": sorted({e["prn"] for e in coll.events
+                                  if e["what"] == "channel_confirmed"}),
+        "sky": sky,
+        "k1_launches": launches["track_chunk_fused"],
+        "k1_share_of_wall": launches["track_chunk_fused"] * k1_ms * 1e-3
+        / wall,
+        "k2_launches": launches["track_chunk_boc_fused"],
+        "k3_launches": launches["track_chunk_dual_fused"],
+        "stage_wall_s": {k: round(v, 4) for k, v in
+                         sorted(coll.stages.items())},
+    }
+
+
+#: The polyphase apply on the card against the float64 direct sum: f32
+#: products summed over K = 250 taps, at most 1e-5 of the input's peak.
+RESAMPLE_TOL = 1e-5
+
+
+def gps_resampled_checks(res: dict) -> None:
+    refused = refused_modules()
+    live = [r for r in res["sky"].values() if r["slot"] is not None]
+    checks = {
+        "live >= 10 of 11": len(live) >= 10,
+        "every live channel's Doppler within 5 Hz": all(
+            abs(r["doppler_err_hz"]) < 5.0 for r in live),
+        "no absent PRN confirmed":
+            not set(res["confirmed_prns"]) & set(res["absent_prns"]),
+        "apply parity": max(res["apply_1ms_block"]["max_abs_err_over_peak"],
+                            res["apply_100ms_block"][
+                                "max_abs_err_over_peak"]) <= RESAMPLE_TOL,
+        "nearest exact": res["nearest_exact"],
+        "K1's kernel time beside the producer within 20% of alone": (
+            res["k1_ms_beside_producer"]["kernel_us_beside_producer"]
+            <= 1.2 * res["k1_ms_beside_producer"]["kernel_us_alone"]),
+        "k1_launches > 0, K2 and K3 none": (res["k1_launches"] > 0
+                                            and res["k2_launches"] == 0
+                                            and res["k3_launches"] == 0),
+        "no jax or gnsstpu module loaded": not refused,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gps_l1_16msps_resampled_12ch checks "
+                             f"failed: {failed} (modules: {refused[:5]})")
+
+
+#: K1's __global__ function in csrc/track_fused.cu, as a profiler trace
+#: names its launches.
+K1_GLOBAL = "track_fused_kernel"
+
+
+def _banner_port(proc, tags: dict, timeout_s: float = 120.0) -> dict:
+    """Ports from a subprocess's stderr banners ('... on tcp://H:PORT'),
+    by key of `tags`."""
+    ports = {}
+    deadline = time.monotonic() + timeout_s
+    lines = []
+    while len(ports) < len(tags) and time.monotonic() < deadline:
+        line = proc.stderr.readline()
+        if not line:
+            break
+        lines.append(line)
+        for key, tag in tags.items():
+            if tag in line:
+                ports[key] = int(line.split(tag)[1].split(":")[2]
+                                 .split()[0])
+    if len(ports) < len(tags):
+        raise AssertionError(f"banners missing: {ports} in {lines[-20:]}")
+    return ports
+
+
+def cli_path(device, seconds: float = 6.0) -> dict:
+    """The CLI on the card: `python -m gnsstpu_torch track --listen tcp:0
+    --listen-fmt sm2 --station-port 0 --profile DIR --log LOG` (4
+    channels, the main path's 500 ms epochs x 8 with prefetch, so its
+    FIFO holds the whole signal while the receiver starts) on a 3-SV sky,
+    this process sending the bytes to the banner's port at 8 x real time
+    and `python -m gnsstpu_torch monitor tcp://127.0.0.1:PORT --follow`
+    running alongside."""
+    sats = [SatParams(prn=p, doppler_hz=d, code_phase_chips=cp,
+                      cn0_dbhz=47.0)
+            for p, d, cp in ((4, 1200.0, 100.5), (11, -2100.0, 600.25),
+                             (23, 350.0, 901.75))]
+    n_ms = int(round(seconds * 1000))
+    sim = IFSimulator(SIG, sats, noise_sigma=1.0, seed=5, device=device)
+    wire = up.pack(sim.generate(n_ms + 200), "sm2", 1.0).tobytes()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        prof, log = os.path.join(tmp, "prof"), os.path.join(tmp, "tlm.jsonl")
+        t0 = time.perf_counter()
+        try:
+            rx = subprocess.Popen(
+                [sys.executable, "-m", "gnsstpu_torch", "track", "--device",
+                 device.type, "--listen", "tcp:0", "--listen-fmt", "sm2",
+                 "--station-port", "0",
+                 "--profile", prof, "--log", log, "--fs", "2.048e6",
+                 "--if-freq", "0", "--ms", str(n_ms), "--band", "6e3",
+                 "--threshold", "2.4", "--channels", "4", "--epoch-ms",
+                 "500", "--sync-every", "8", "--prefetch", "--readback",
+                 "compact"], cwd=repo, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            procs.append(rx)
+            ports = _banner_port(rx, {
+                "listen": "listening for IF samples on",
+                "station": "station server on"})
+            mon = subprocess.Popen(
+                [sys.executable, "-m", "gnsstpu_torch", "monitor",
+                 f"tcp://127.0.0.1:{ports['station']}", "--follow",
+                 "--interval", "0.2"], cwd=repo, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            procs.append(mon)
+            time.sleep(1.0)
+            _send_paced(ports["listen"], wire, 8.0 * len(wire) / (
+                n_ms + 200) * 1000.0, 64 * 1024)
+            rx_out, rx_err = rx.communicate(timeout=300)
+            mon_out, mon_err = mon.communicate(timeout=60)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        trace = os.path.join(prof, "trace.json")
+        text = ""
+        if os.path.exists(trace):
+            with open(trace) as f:
+                text = f.read()
+        n_tlm = 0
+        if os.path.exists(log):
+            with open(log) as f:
+                n_tlm = sum(1 for _ in f)
+    live = None
+    if "live PRNs at end: " in rx_out:
+        live = json.loads(rx_out.rsplit("live PRNs at end: ", 1)[1])
+    events = json.loads(text)["traceEvents"] if text else []
+    k1_events = [e for e in events if K1_GLOBAL in str(e.get("name", ""))]
+    return {
+        "wall_s": wall,
+        "track_rc": rx.returncode,
+        "monitor_rc": mon.returncode,
+        "banner": "listen" in ports,
+        "live_prns_at_end": live,
+        "sky_prns": sorted(s.prn for s in sats),
+        "monitor_board": " ch  prn  state" in mon_out,
+        "monitor_closed": "-- receiver closed the link" in mon_out,
+        "telemetry_lines": n_tlm,
+        "trace_bytes": len(text),
+        "trace_events": len(events),
+        "trace_k1_events": len(k1_events),
+        "trace_k1_device_us": sum(float(e.get("dur", 0.0))
+                                  for e in k1_events
+                                  if e.get("cat") == "kernel"),
+        "track_stderr_tail": rx_err[-300:] if rx.returncode else "",
+        "monitor_stderr_tail": mon_err[-300:] if mon.returncode else "",
+    }
+
+
+def cli_checks(res: dict) -> None:
+    checks = {
+        "track exits 0": res["track_rc"] == 0,
+        "banner printed": res["banner"],
+        "live PRNs at end name the sky":
+            sorted(res["live_prns_at_end"] or []) == res["sky_prns"],
+        "monitor renders a board and exits 0 on the close":
+            res["monitor_rc"] == 0 and res["monitor_board"]
+            and res["monitor_closed"],
+        "the trace names K1's __global__": res["trace_k1_events"] > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"CLI checks failed: {failed}")
+
+
 def main() -> int:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1357,7 +2038,7 @@ def main() -> int:
           flush=True)
 
     # 5. GPS main path.
-    res = gps_main_path(dev)
+    res, gps_wire = gps_main_path(dev)
     print(f"[5 main path] {json.dumps(res)}", flush=True)
     checks = {
         "live_channels_at_end >= 10": res["live_channels_at_end"] >= 10,
@@ -1554,10 +2235,38 @@ def main() -> int:
     if failed:
         raise AssertionError(f"manager feature checks failed: {failed}")
 
-    # 18. K1's launches on its three live paths.
+    # 19. The GPS main path fed over TCP as sm2 bytes, with a station.
+    k1_gps_ms = k500_ms
+    tres = gps_tcp_live_path(dev, gps_wire, k1_gps_ms)
+    del gps_wire
+    print(f"[19 gps_l1_tcp_live_12ch] {json.dumps(tres)} | phase 5 beside "
+          f"it: live {res['live_channels_at_end']}, ephemerides "
+          f"{res['ephemerides_decoded']}, fixes {res['pvt_solutions']}, "
+          f"last-fix error {res.get('last_fix_err_m')} m, realtime factor "
+          f"{res['realtime_factor_overall']:.2f}", flush=True)
+    gps_tcp_checks(tres)
+
+    # 20. The sky at 16 Msps, resampled on the card into the manager.
+    k1_100_ms = kernel_times(k1_inputs(12, 100, dev), tk.track_chunk_fused,
+                             None)[0]
+    rres = gps_resampled_path(dev, k1_100_ms)
+    print(f"[20 gps_l1_16msps_resampled_12ch] parity tolerance "
+          f"{RESAMPLE_TOL:g} x the input's peak (float64 direct sum) | "
+          f"{json.dumps(rres)}", flush=True)
+    gps_resampled_checks(rres)
+
+    # 21. The CLI on the card: track --listen with a station, monitor
+    # tcp:// beside it, and a profiler trace.
+    cres21 = cli_path(dev)
+    print(f"[21 CLI] {json.dumps(cres21)}", flush=True)
+    cli_checks(cres21)
+
+    # 18. K1's launches on each live path in this process.
     k1_paths = {"gps_l1_live_12ch": res["k1_launches"],
                 "beidou_b1i_live_12ch": bres["k1_launches"],
-                "glonass_l1of_live_12ch": ores["k1_launches"]}
+                "glonass_l1of_live_12ch": ores["k1_launches"],
+                "gps_l1_tcp_live_12ch": tres["k1_launches"],
+                "gps_l1_16msps_resampled_12ch": rres["k1_launches"]}
     print(f"[18 K1 launches by path] {json.dumps(k1_paths)}", flush=True)
 
     print(json.dumps({"kernels": [

@@ -50,7 +50,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from gnsstpu_torch.config import ReceiverConfig
+from gnsstpu_torch.config import ReceiverConfig, SignalConfig
 from gnsstpu_torch.runtime.telemetry import Telemetry
 from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.acquisition.search import (
@@ -158,6 +158,17 @@ def _map_state(fn, *trees):
     return fn(*trees)
 
 
+def _drift_margin(sig: SignalConfig, epoch_ms: int, sync_every: int,
+                  prefetch: bool, spread_budget_s: float) -> int:
+    """Window slack: per-superepoch code-Doppler drift plus the
+    inter-channel code-phase spread a live session accumulates (as the
+    reference manager budgets it)."""
+    lag = 2 if prefetch else 1
+    return 64 + sig.samples_per_code + int(np.ceil(
+        lag * sync_every * epoch_ms * 1e-3 * 2e-5 * sig.fs
+        + spread_budget_s * 6.4e-6 * sig.fs))
+
+
 class ChannelManager:
     """Supervises a fixed bank of tracking slots over a sample source.
 
@@ -242,13 +253,9 @@ class ChannelManager:
         self._cursor = 0                           # epoch base sample
         self._next_reacq_ms = 0
         self._clock_epochs = 0
-        # Window slack: per-superepoch code-Doppler drift plus the
-        # inter-channel code-phase spread a live session accumulates (as
-        # the reference manager budgets it).
-        lag = 2 if self.prefetch else 1
-        self._drift_margin = 64 + spc + int(np.ceil(
-            lag * self.sync_every * epoch_ms * 1e-3 * 2e-5 * self.sig.fs
-            + spread_budget_s * 6.4e-6 * self.sig.fs))
+        self._drift_margin = _drift_margin(self.sig, epoch_ms,
+                                           self.sync_every, self.prefetch,
+                                           spread_budget_s)
         if history_window_ms is None:
             try:
                 unbounded = len(source) >= 2 ** 61
@@ -270,9 +277,10 @@ class ChannelManager:
         espc = self._bpe * spc
         self._espc = espc
         self._win_len = espc + spc + self._drift_margin + 2
-        self._chunk_len = (self.sync_every - 1) * espc + self._win_len
-        if self.wire is not None:
-            self._chunk_len += (-self._chunk_len) % up.align(self.wire)
+        self._chunk_len = self.chunk_samples(
+            self.sig, epoch_ms, sync_every=self.sync_every,
+            prefetch=self.prefetch, wire=self.wire,
+            spread_budget_s=spread_budget_s)
         engine_step = self.eng.make_step(self._bpe)
 
         def step_epoch(win, bank, state):
@@ -282,6 +290,26 @@ class ChannelManager:
             return state, obs
 
         self._step_epoch = step_epoch
+
+    @staticmethod
+    def chunk_samples(sig: SignalConfig, epoch_ms: int, *,
+                      sync_every: int = 1, prefetch: bool = False,
+                      wire: Optional[str] = None,
+                      spread_budget_s: float = 900.0) -> int:
+        """Samples of one superepoch's chunk, the longest read the
+        manager makes of its source, for these constructor arguments. A
+        live stream source's history must hold more than this
+        (runtime.sources.stream_blocks keeps two chunks)."""
+        spc = sig.samples_per_code
+        period_ms = int(round(sig.code_period_s * 1e3))
+        sync_every = max(1, int(sync_every))
+        espc = (epoch_ms // period_ms) * spc
+        win_len = espc + spc + _drift_margin(sig, epoch_ms, sync_every,
+                                             prefetch, spread_budget_s) + 2
+        n = (sync_every - 1) * espc + win_len
+        if wire is not None:
+            n += (-n) % up.align(wire)
+        return n
 
     # --- device placement ---
 

@@ -1,10 +1,19 @@
-"""`python -m gnsstpu_torch track FILE`: the port's command line tracks an
-IF file on the CPU (K1's plain twin) and writes telemetry, GLONASS L1OF
-included, saves the channel bank (--checkpoint) and warm-restarts from it
-(--resume); the options of parts not ported yet raise instead of being
-ignored."""
+"""`python -m gnsstpu_torch`: the port's command line on the CPU (K1's
+plain twin). `track FILE` writes telemetry, GLONASS L1OF included, saves
+the channel bank (--checkpoint) and warm-restarts from it (--resume);
+`track --listen` takes a radio's packed bytes over TCP with a station
+server and a profiler trace; `track FILE --source-fs` resamples the file
+(also streamed, --stream); `monitor LOG` renders the reference's board;
+`simulate` writes a file that `track` and `acquire` find the sky in. Only
+--mesh, not ported yet, raises instead of being ignored."""
 
 import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,11 +52,11 @@ def test_track_file(if_file, tmp_path, capsys):
     assert starts == {5, 12}
 
 
-@pytest.mark.parametrize("opt", ["--mesh", "--resume", "--listen",
-                                 "--profile"])
+@pytest.mark.parametrize("opt", ["--mesh", "--resume"])
 def test_unported_options_raise(if_file, opt):
-    """An option of a part not ported yet raises NotImplementedError;
-    --resume is ported, and a checkpoint file that is not there raises."""
+    """--mesh, not ported yet, raises NotImplementedError naming its
+    ROADMAP item; --resume is ported, and a checkpoint file that is not
+    there raises."""
     err = FileNotFoundError if opt == "--resume" else NotImplementedError
     with pytest.raises(err, match="ROADMAP" if opt != "--resume" else "x"):
         main(["track", if_file, *ARGS, opt, "x"])
@@ -96,3 +105,156 @@ def test_track_glonass_checkpoint_resume(glonass_file, tmp_path, capsys):
     assert not [r for r in second if r.get("what") == "channel_start"]
     live = {r["prn"] for r in second if r.get("type") == "channel_health"}
     assert live == started
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_track_listen_tcp(tmp_path):
+    """tests/test_stream.py's CLI case on the port: `track --listen tcp:0
+    --listen-fmt sm2` as a subprocess takes a radio's packed 2-bit bytes
+    from a TCP sender and tracks, with a station server (a client reads
+    its records)."""
+    from gnsstpu.ops import unpack as up
+    from gnsstpu_torch.runtime.remote import StationSocket
+
+    sats = [SatParams(prn=6, doppler_hz=-1100.0, code_phase_chips=512.5,
+                      cn0_dbhz=47.0)]
+    samples = np.asarray(IFSimulator(SIG, sats, noise_sigma=1.0,
+                                     seed=12).generate(940))
+    wire = up.pack(samples, "sm2", scale=1.0).tobytes()
+    # One torch thread: beside a parallel test run, a thread pool in the
+    # subprocess oversubscribes the host's cores.
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gnsstpu_torch", "track", "--device", "cpu",
+         "--listen", "tcp:0", "--listen-fmt", "sm2", "--station-port", "0",
+         "--log", str(tmp_path / "tlm.jsonl"),
+         "--fs", "2.048e6", "--if-freq", "0", "--ms", "800", "--band",
+         "6e3", "--threshold", "2.4", "--channels", "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(REPO), env=env)
+    link = None
+    try:
+        ports = {}
+        for _ in range(50):
+            line = proc.stderr.readline()
+            for key, tag in (("listen", "listening for IF samples on"),
+                             ("station", "station server on")):
+                if tag in line:
+                    ports[key] = int(line.split(tag)[1].split(":")[2]
+                                     .split()[0])
+            if len(ports) == 2:
+                break
+        assert len(ports) == 2, f"no banners: {ports}"
+        link = StationSocket("127.0.0.1", ports["station"])
+        tx = socket.create_connection(("127.0.0.1", ports["listen"]),
+                                      timeout=10)
+        try:
+            tx.sendall(wire)
+        finally:
+            tx.close()
+        out, err = proc.communicate(timeout=300)
+        lines = []
+        for _ in range(100):
+            lines += link.read_lines()
+            if link.closed:
+                break
+            time.sleep(0.05)
+    finally:
+        if link is not None:
+            link.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    assert proc.returncode == 0, err
+    assert "live PRNs at end: [6]" in out, (out, err)
+    recs = [json.loads(line) for line in lines]
+    assert any(r["type"] == "channel_health" and r["prn"] == 6
+               for r in recs)
+
+
+def test_profile_writes_a_chrome_trace(tmp_path):
+    """`--profile DIR` runs the manager under torch.profiler and writes
+    DIR/trace.json (on the card it names K1's kernel: chip_smoke.py phase
+    21). A stand-in manager keeps the CPU trace small."""
+    import torch
+
+    from gnsstpu_torch.__main__ import _run_profiled
+
+    class Manager:
+        device = torch.device("cpu")
+
+        def run(self, n_ms):
+            x = torch.ones(n_ms)
+            return [float(torch.cumsum(x, 0)[-1])]
+
+    assert _run_profiled(Manager(), 64, str(tmp_path / "p")) == [64.0]
+    events = json.loads((tmp_path / "p" / "trace.json").read_text())[
+        "traceEvents"]
+    assert any("cumsum" in e.get("name", "") for e in events)
+
+
+@pytest.fixture(scope="module")
+def hi_rate_file(tmp_path_factory):
+    """1 s of a 2-SV sky at 4.096 Msps, 8-bit I/Q."""
+    sig_in = SignalConfig(if_freq=0.0, fs=4.096e6, complex_iq=True)
+    sats = [SatParams(prn=5, doppler_hz=900.0, code_phase_chips=200.5,
+                      cn0_dbhz=47.0),
+            SatParams(prn=12, doppler_hz=-1500.0, code_phase_chips=700.25,
+                      cn0_dbhz=46.0)]
+    x = np.asarray(IFSimulator(sig_in, sats, noise_sigma=1.0,
+                               seed=3).generate(1000))
+    path = tmp_path_factory.mktemp("if") / "hi_rate.i8"
+    np.clip(np.round(x * 18.0), -127, 127).astype(np.int8).tofile(path)
+    return str(path)
+
+
+@pytest.mark.parametrize("stream", [[], ["--stream"]],
+                         ids=["file", "stream"])
+def test_track_source_fs(hi_rate_file, stream, capsys):
+    """`track FILE --source-fs 4.096e6 --fs 2.048e6` resamples the file to
+    the receiver's rate (polyphase, on the CPU here) and tracks both SVs,
+    read directly or streamed through the producer thread and the FIFO."""
+    assert main(["track", hi_rate_file, *ARGS, "--source-fs", "4.096e6",
+                 *stream]) == 0
+    out = capsys.readouterr().out
+    live = json.loads(out.rsplit("live PRNs at end: ", 1)[1])
+    assert sorted(live) == [5, 12]
+
+
+def test_monitor_log_matches_reference(if_file, tmp_path, capsys):
+    """`monitor LOG` of a port track run prints the reference's board
+    (`gnsstpu.cli.main(["monitor", LOG])`) on every page."""
+    from gnsstpu.cli import main as jmain
+
+    log = str(tmp_path / "tlm.jsonl")
+    assert main(["track", if_file, *ARGS, "--navigate", "--log", log]) == 0
+    capsys.readouterr()
+    for page in ("channels", "health", "events", "all"):
+        assert main(["monitor", log, "--page", page]) == 0
+        port = capsys.readouterr().out
+        assert jmain(["monitor", log, "--page", page]) == 0
+        assert port == capsys.readouterr().out
+        assert port.strip()
+
+
+def test_simulate_round_trip(tmp_path, capsys):
+    """`simulate OUT` writes an i8_iq file; `acquire OUT` and `track OUT`
+    find its PRNs. (The two packages' simulators draw noise from other
+    generators, so the bytes are not compared with the reference's.)"""
+    out = str(tmp_path / "sim.i8")
+    sig = ["--device", "cpu", "--fs", "2.048e6", "--if-freq", "0"]
+    assert main(["simulate", out, *sig, "--ms", "900", "--seed", "7",
+                 "--sat", "3:1200:100.5:47", "--sat",
+                 "17:-700:800.25:47"]) == 0
+    assert "wrote 900 ms" in capsys.readouterr().out
+    assert main(["acquire", out, *sig, "--band", "6e3", "--threshold",
+                 "2.4"]) == 0
+    found = [json.loads(line) for line in
+             capsys.readouterr().out.splitlines()]
+    det = {r["prn"]: r for r in found if r["detected"]}
+    assert set(det) == {3, 17}
+    assert abs(det[3]["carr_freq_hz"] - 1200.0) < 300.0
+    assert main(["track", out, *ARGS]) == 0
+    assert "live PRNs at end: [3, 17]" in capsys.readouterr().out

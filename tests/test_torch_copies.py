@@ -3,7 +3,8 @@
 gnsstpu_torch carries its own copy of every gnsstpu module that it or
 chip_smoke.py reaches (config, signal definitions, code tables, nav
 decode and PVT, the online navigator, telemetry, the command console, the
-checkpoint file format).
+checkpoint file format, the remote station) and of the ring FIFO's C++
+source.
 Each copy is the origin verbatim except for the import prefix
 (`gnsstpu.` -> `gnsstpu_torch.` on import lines) and one docstring line
 naming the origin. test_copies_match_their_origin is the drift guard: a
@@ -35,10 +36,13 @@ COPIES = (
     "nav/ekf.py", "nav/almanac.py", "nav/visibility.py", "nav/glonass.py",
     "nav/beidou.py", "nav/galileo.py", "nav/viterbi.py", "nav/glonass_l3.py",
     "runtime/navigator.py", "runtime/telemetry.py", "runtime/console.py",
-    "runtime/checkpoint.py",
+    "runtime/checkpoint.py", "runtime/remote.py", "runtime/station.py",
 )
 #: Binary data copied byte for byte.
 DATA = ("signals/data/galileo_e1_codes.npz",)
+#: Native sources copied byte for byte, as (path in the port, path in the
+#: repo): their origin is the reference's native/, not gnsstpu/.
+NATIVE = (("csrc/host/ring_fifo.cpp", "native/src/ring_fifo.cpp"),)
 
 NOTE = "Copied from gnsstpu/{rel}; only the import prefix differs."
 _IMPORT = re.compile(r"^(\s*)(from|import)(\s+)gnsstpu\.", re.M)
@@ -71,6 +75,13 @@ def test_copies_match_their_origin(rel):
 def test_data_files_match_their_origin(rel):
     assert ((REPO / "gnsstpu_torch" / rel).read_bytes()
             == (REPO / "gnsstpu" / rel).read_bytes())
+
+
+@pytest.mark.parametrize("rel,origin", NATIVE)
+def test_native_sources_match_their_origin(rel, origin):
+    assert ((REPO / "gnsstpu_torch" / rel).read_bytes()
+            == (REPO / origin).read_bytes()), (
+        f"gnsstpu_torch/{rel} drifted from {origin}: copy it over")
 
 
 def _both(mod: str):

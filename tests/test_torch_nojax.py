@@ -152,12 +152,15 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("entry", ["acquire", "IFSimulator",
-                                   "ChannelManager"])
+                                   "ChannelManager", "ResampledSource",
+                                   "polyphase_resample"])
 def test_entry_points_default_to_the_card(entry):
     """Called without `device`, an entry point asks for the card: on a
     host without one it raises, never quietly running on the CPU."""
     from gnsstpu_torch import AcqConfig, ReceiverConfig, SignalConfig
     from gnsstpu_torch.acquisition.search import acquire
+    from gnsstpu_torch.ops.resample import (ResampledSource,
+                                            polyphase_resample)
     from gnsstpu_torch.runtime.manager import ChannelManager
     from gnsstpu_torch.runtime.sources import ArraySource
     from gnsstpu_torch.sim import IFSimulator, SatParams
@@ -172,10 +175,15 @@ def test_entry_points_default_to_the_card(entry):
         "ChannelManager": lambda: ChannelManager(
             ArraySource(np.zeros((2048, 2), np.float32)),
             ReceiverConfig(signal=sig, n_channels=1)).device,
+        "ResampledSource": lambda: ResampledSource(
+            ArraySource(np.zeros((4096, 2), np.float32)), 4.096e6,
+            2.048e6).device,
+        "polyphase_resample": lambda: polyphase_resample(
+            np.zeros((4096, 2), np.float32), 1, 2),
     }
     if torch.cuda.is_available():
         got = calls[entry]()
-        if entry != "acquire":
+        if entry not in ("acquire", "polyphase_resample"):
             assert got.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="is_available"):
