@@ -6,7 +6,10 @@ Drives the port's five live receiver paths once on the card, through the
 entry points a user calls, each with a sky and signal made by the port's
 simulator from a fixed seed, then the live front end (phases 19-21: the
 GPS path over TCP with the ring FIFO and a remote station, a 16 Msps
-stream resampled on the card, and the command line):
+stream resampled on the card, and the command line), then the offline
+chain (phases 22-28: runtime.receiver.run_receiver, the chunked
+trackers, the P-code loop and the CLI's solve, each at the configuration
+of the reference test it names):
   * GPS L1 C/A at the benchmark configuration (bench.py::bench_manager):
     2.048 Msps complex, 12 channels over an 11-satellite geometry-true sky
     plus 2 absent PRNs in the pool, 500 ms epochs, 8-epoch superepochs,
@@ -140,10 +143,51 @@ Phases (each prints one line; any failure raises and exits non-zero):
      sky's PRNs live at the end, a board and exit 0 when the receiver
      closes the link, and a torch.profiler trace naming K1's __global__
      function;
- 18. (printed after 21) K1's launches on each of its five paths in this
-     process;
-then the kernel record (K1's launches summed over those paths), the
-nvidia-smi line and the result line.
+ 22. gps_l1_solve_8ch: tests/test_full_chain.py:32-69 (GPS L1 C/A, 2.048
+     Msps complex, its 6-SV sky at 47 dB-Hz, 8 channels, 24 s) through
+     run_receiver: K1 at C=6 x 256 blocks (tracking.driver.track), then
+     LNAV decode and the LSQ; its limits (:72-147): every sky SV
+     tracked, every ephemeris as the truth, TOW exact, >= 10 valid
+     epochs, mean 3D error < 20 m and max < 60 m, GDOP < 25, mean speed
+     < 2 m/s and max < 8;
+ 23. galileo_e1b_solve_5ch: tests/test_galileo.py:199-242 (4.2 Msps, 5
+     channels, 3,250 periods of 4 ms, 48 dB-Hz) through run_receiver and
+     track_boc (K2 at C=5 x 128, first held against its twin and bound
+     at that shape): every ephemeris as the truth, >= 8 epochs, mean < 25
+     m, max < 80 m;
+ 24. beidou_b1i_solve_6ch: tests/test_beidou.py:176-220 (4.096 Msps, 6
+     channels, 20,600 ms, 48 dB-Hz; K1 at blkp 4,098 with the 'atan'
+     FLL): every D1 ephemeris as the truth, >= 10 epochs, mean < 25 m,
+     max < 80 m;
+ 25. glonass_l1of_solve_6ch: examples/e2e_glonass_fix.py (4.096 Msps, 6
+     channels, 10 s, FDMA acquisition; K1 at blkp 4,098, each channel's
+     FDMA carrier base): mean 3D error < 25 m;
+ 26. glonass_l3oc_track_dual_8ch: track_dual over phase 13's sky (8
+     satellites, 24 Msps, 9 s), its channels from the port's acquisition
+     (K3 at C=8 x 256, first held against its twin and bound at that
+     shape): phase 13's limits (Doppler within 5 Hz, NH(10)
+     sync >= 0.9, the 24 data bits exact);
+ 27. the GLONASS P-code closed loop of tests/test_glonass.py:319-366 on
+     the card (tracking.pcode, plain torch ops: the reference has no
+     Pallas kernel for it) with that test's limits;
+ 28. the CLI: phase 22's signal as an i8_iq file, `python -m
+     gnsstpu_torch solve FILE --fs 2.048e6 --if-freq 0 --format i8_iq
+     --ms 24000 --channels 8 --log LOG` in a subprocess: exit 0, a fix
+     within 1e-3 deg of the truth, PVT records in the log;
+ 18. (printed after 28) K1's launches on each of its paths in this
+     process (the CLI's are its own process's), K2's and K3's by path;
+Phases 22-25 track the very signal of the reference test they name: the
+port's simulator with the reference's noise (IFSimulator(noise="jax"),
+jax.random's draws made without JAX) behind the reference test's
+SimSource, each read recorded on the card by a first run and served
+again to the timed one. Each offline phase prints its seconds of signal,
+wall and realtime factor (signal / wall of the timed run), the
+split into acquisition, track (uploads, launches, one readback per chunk)
+and decode + navigation, its kernel's launches and ms per launch at its
+shape (CUDA events, the kernel alone), its outcomes and the jax /
+gnsstpu modules loaded (none).
+Then the kernel record (each kernel's launches summed over its paths),
+the nvidia-smi line and the result line.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s (the chunk,
 the tap rows this run's data selects, state and outputs, each once) and
@@ -187,9 +231,10 @@ from gnsstpu_torch.runtime import OnlineNavigator, Telemetry
 from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.remote import StationServer, StationSocket
 from gnsstpu_torch.runtime.sources import (ArraySource,
+                                           DeviceArraySource,
                                            DevicePackedArraySource,
                                            FileSource, FileStreamProducer,
-                                           PackedStreamSource,
+                                           PackedStreamSource, SimSource,
                                            StreamSource, TcpStreamProducer,
                                            stream_blocks)
 from gnsstpu_torch.sim import IFSimulator, SatParams
@@ -1976,6 +2021,523 @@ def cli_checks(res: dict) -> None:
         raise AssertionError(f"CLI checks failed: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# The offline chain (phases 22-28): runtime.receiver.run_receiver, the
+# chunked drivers track / track_boc / track_dual, the P-code tracker and
+# the CLI's solve, each at the configuration of the reference test named.
+# ---------------------------------------------------------------------------
+
+#: tests/test_full_chain.py: GPS L1 C/A, 2.048 Msps complex, 6 SVs.
+FC_TOW0_6S, FC_NMS = 44400, 24000
+FC_CFG = ReceiverConfig(
+    signal=SIG,
+    acq=AcqConfig(doppler_band=12e3, coherent_ms=2, threshold=2.5),
+    track=TrackConfig(dll_bw=1.0, pll_bw=25.0, fll_bw=250.0),
+    nav=NavConfig(sol_period_ms=500, elevation_mask_deg=10.0,
+                  use_tropo=False),
+    n_channels=8, ms_to_process=FC_NMS)
+#: examples/e2e_glonass_fix.py: GLONASS L1OF at 4.096 Msps (K1 at blkp
+#: 4,098, as BSIG, tests/test_beidou.py:176-220's BeiDou front end).
+OSIG4 = SignalConfig(signal="glonass_l1of", if_freq=0.0, fs=4.096e6,
+                     code_freq=0.511e6, code_length=511, fdma_step=562.5e3,
+                     complex_iq=True)
+#: The kernels by wrapper name, as the offline phases print them.
+OFFLINE_KERNEL = {"track_chunk_fused": "K1", "track_chunk_boc_fused": "K2",
+                  "track_chunk_dual_fused": "K3"}
+
+
+def offline_source(sig, sats, n_ms: int, seed: int, device
+                   ) -> DeviceArraySource:
+    """n_ms of the port simulator's signal on the card as f32 samples,
+    made in 1 s pieces before the timed run; zeros past its end."""
+    sim = IFSimulator(sig, sats, noise_sigma=1.0, seed=seed, device=device)
+    x = torch.cat([sim.generate_tensor(min(1000, n_ms - ms0), ms0)
+                   for ms0 in range(0, n_ms, 1000)])
+    torch.cuda.synchronize()
+    return DeviceArraySource(x)
+
+
+class ReplaySource:
+    """The reference tests' source, a SimSource over the simulator with
+    the reference's own noise (IFSimulator(noise="jax"): jax.random's
+    draws, keyed by seed and each lazily made piece's first ms, as the
+    reference's SimSource makes them), so a phase tracks the very signal
+    of the reference test it names. A first run through it records every
+    read as a tensor on the card; replay() then serves the same reads
+    again, so a timed second run meets no simulator and no upload."""
+
+    def __init__(self, sig, sats, n_ms: int, seed: int, device):
+        sim = IFSimulator(sig, sats, noise_sigma=1.0, seed=seed,
+                          device=device, noise="jax")
+        self.src = SimSource(sim, n_ms)
+        self.device = device
+        self.log = []
+        self.at = None
+
+    def read(self, start: int, count: int) -> torch.Tensor:
+        if self.at is None:
+            x = torch.as_tensor(self.src.read(start, count),
+                                device=self.device)
+            self.log.append((start, count, x))
+            return x
+        s0, n, x = self.log[self.at]
+        if (s0, n) != (start, count):
+            raise AssertionError(f"replayed read ({start}, {count}) is not "
+                                 f"the recorded ({s0}, {n})")
+        self.at += 1
+        return x
+
+    def replay(self) -> None:
+        self.at = 0
+
+
+def fix_errors(nav, recv) -> dict:
+    """Valid epochs, 3D errors against recv and the mean speed of a
+    NavSolutions (None when there is none)."""
+    if nav is None or not np.any(nav.valid):
+        return {"valid_epochs": 0}
+    v = nav.valid
+    err = np.linalg.norm(np.stack([nav.x[v], nav.y[v], nav.z[v]], 1)
+                         - recv, axis=1)
+    out = {"valid_epochs": int(v.sum()), "mean_3d_err_m": float(err.mean()),
+           "max_3d_err_m": float(err.max()),
+           "max_gdop": float(np.max(nav.dop[v, 0])),
+           "mean_lat_deg": float(np.mean(nav.latitude[v])),
+           "mean_lon_deg": float(np.mean(nav.longitude[v]))}
+    if np.any(nav.vel_valid):
+        vv = nav.vel_valid
+        speed = np.linalg.norm(np.stack([nav.vx, nav.vy, nav.vz], 1)[vv],
+                               axis=1)
+        out.update(vel_epochs=int(vv.sum()),
+                   mean_speed_mps=float(speed.mean()),
+                   max_speed_mps=float(speed.max()))
+    return out
+
+
+def offline_run(device, src: ReplaySource, cfg, n_ms: int, kernel: str,
+                k_ms: float, seconds: float) -> tuple:
+    """run_receiver on the card over src (seconds of signal): a first run
+    that records the simulator's reads (and warms up), then the timed
+    run over the same reads. Returns its output and the run's record
+    (realtime factor, the stage split, the kernel's launches and share
+    of the wall, the modules refused)."""
+    from gnsstpu_torch.runtime.receiver import run_receiver
+
+    t0 = time.perf_counter()
+    run_receiver(src, cfg, n_ms=n_ms, device=device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    src.replay()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    out = run_receiver(src, cfg, n_ms=n_ms, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    rec = {"signal_s": seconds, "wall_s": wall,
+           "realtime_factor": seconds / wall,
+           "first_run_s": setup,
+           "stage_s": {k: round(v, 4) for k, v in out.stage_s.items()},
+           "channels": [c.prn for c in out.channels],
+           "kernel": OFFLINE_KERNEL[kernel],
+           "launches": launches[kernel],
+           "other_kernel_launches": sum(v for k, v in launches.items()
+                                        if k != kernel),
+           "kernel_ms_per_launch": k_ms,
+           "kernel_share_of_wall": launches[kernel] * k_ms * 1e-3 / wall,
+           "ephemerides": sorted(out.ephs),
+           "refused_modules": refused_modules()}
+    return out, rec
+
+
+def eph_mismatches(decoded: dict, truth: dict, fields) -> list:
+    """(prn, field) pairs where a decoded ephemeris differs from the
+    truth; a missing PRN counts as ('missing', prn)."""
+    bad = [("missing", p) for p in truth if p not in decoded]
+    for prn, dec in decoded.items():
+        if prn in truth:
+            bad += [(prn, f) for f in fields
+                    if getattr(dec, f) != getattr(truth[prn], f)]
+    return bad
+
+
+def with_checks(rec: dict, checks: dict) -> dict:
+    """rec with its 'checks' (name: passed): an offline phase's own and
+    those every phase shares (its kernel launched and no other, no jax /
+    gnsstpu module loaded)."""
+    checks = dict(checks)
+    checks["its kernel launched, no other"] = (
+        rec["launches"] > 0 and rec["other_kernel_launches"] == 0)
+    checks["no jax or gnsstpu module loaded"] = not rec["refused_modules"]
+    rec["checks"] = checks
+    return rec
+
+
+def raise_failed(tag: str, rec: dict) -> None:
+    """Raises when a check of a printed phase record failed."""
+    failed = [k for k, ok in rec["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"{tag} checks failed: {failed}")
+
+
+def gps_solve_sky() -> tuple:
+    """tests/test_full_chain.py's sky: visible_ephs(6) (bench_constellation's
+    24 orbits, the 6 highest) through build_scenario at 47 dB-Hz.
+    Returns (sats, {prn: ephemeris}, receiver ECEF)."""
+    from gnsstpu_torch.nav.orbits import satpos
+    from gnsstpu_torch.nav.types import Ephemeris
+    from gnsstpu_torch.nav import geodesy
+    from gnsstpu_torch.sim.scenario import build_scenario
+
+    base = dict(
+        t_oc=266400.0, a_f0=2.45e-4, a_f1=-3.2e-12, a_f2=0.0,
+        T_GD=-4.656e-9, sqrtA=5153.712, e=0.0123456, M_0=1.23456,
+        deltan=4.2e-9, omega=-1.87654, omega_0=-2.0312, omegaDot=-8.1e-9,
+        i_0=0.96123, iDot=4.0e-10, t_oe=266400.0, C_uc=-6.7e-7,
+        C_us=8.1e-6, C_rc=221.5625, C_rs=-12.8125, C_ic=-7.45e-8,
+        C_is=1.12e-7, valid=True)
+    recv = np.array([3427947.0, 603774.0, 5326967.0])
+    ephs = []
+    for k in range(24):
+        d = dict(base)
+        d["M_0"] = (base["M_0"] + 2.1 * k) % (2 * np.pi) - np.pi
+        d["omega_0"] = (base["omega_0"] + 1.1 * k) % (2 * np.pi) - np.pi
+        d["i_0"] = 0.93 + 0.03 * (k % 3)
+        ephs.append(Ephemeris(**d))
+    pos, _ = satpos(FC_TOW0_6S * 6.0, ephs)
+    _, el, _ = geodesy.topocent(recv, pos - recv)
+    chosen = {int(k) + 1: ephs[k] for k in np.argsort(-el)[:6]}
+    sats = build_scenario(SIG, chosen, recv, FC_TOW0_6S,
+                          duration_s=FC_NMS / 1000.0, cn0_dbhz=47.0)
+    return sats, chosen, recv
+
+
+def solve_setup(name: str) -> dict:
+    """The configuration of an offline phase (22-25) as its reference test
+    sets it: sig, sats, the ReceiverConfig cfg, n_ms (code periods
+    tracked), src_ms (the milliseconds its SimSource holds), the seed, the
+    receiver position recv, the truth {prn: ephemeris} and the kernel."""
+    nav = NavConfig(sol_period_ms=500, elevation_mask_deg=10.0,
+                    use_tropo=False)
+    if name == "gps_l1_solve_8ch":
+        sats, truth, recv = gps_solve_sky()
+        return dict(sig=SIG, sats=sats, cfg=FC_CFG, n_ms=FC_NMS,
+                    src_ms=FC_NMS + 50, seed=21, recv=recv, truth=truth,
+                    kernel="track_chunk_fused")
+    if name == "galileo_e1b_solve_5ch":
+        n_per = 3250
+        sats, _, recv, truth = galileo_constellation(
+            GSIG, 5, duration_s=n_per * GSIG.code_period_s, cn0_dbhz=48.0)
+        cfg = ReceiverConfig(
+            signal=GSIG,
+            acq=AcqConfig(doppler_band=9e3, coherent_ms=1, threshold=2.2,
+                          doppler_step=75.0, prn_list=tuple(sorted(truth))),
+            track=GTRK, nav=nav, n_channels=5, ms_to_process=n_per)
+        return dict(sig=GSIG, sats=sats, cfg=cfg, n_ms=n_per,
+                    src_ms=int((n_per + 8) * GSIG.code_period_ms), seed=23,
+                    recv=recv, truth=truth, kernel="track_chunk_boc_fused")
+    if name == "beidou_b1i_solve_6ch":
+        n_ms = 20600
+        sats, _, recv, truth = beidou_constellation(
+            BSIG, 5, duration_s=n_ms / 1000.0, cn0_dbhz=48.0)
+        cfg = ReceiverConfig(
+            signal=BSIG,
+            acq=AcqConfig(doppler_band=12e3, coherent_ms=1, threshold=2.0,
+                          doppler_step=125.0),
+            track=BTRK, nav=nav, n_channels=6, ms_to_process=n_ms)
+        return dict(sig=BSIG, sats=sats, cfg=cfg, n_ms=n_ms,
+                    src_ms=n_ms + 60, seed=17, recv=recv, truth=truth,
+                    kernel="track_chunk_fused")
+    if name == "glonass_l1of_solve_6ch":
+        n_ms = 10000
+        gephs = make_glonass_constellation(GFIX_RECV, GFIX_TB, n=6)
+        sats, truth = build_scenario_glonass(
+            OSIG4, gephs, GFIX_RECV, GFIX_T0, duration_s=n_ms / 1000.0,
+            cn0_dbhz=48.0, n_strings=4)
+        cfg = ReceiverConfig(
+            signal=OSIG4,
+            acq=AcqConfig(doppler_band=14e3, coherent_ms=2, threshold=2.5),
+            track=OTRK, nav=nav, n_channels=6, ms_to_process=n_ms)
+        return dict(sig=OSIG4, sats=sats, cfg=cfg, n_ms=n_ms,
+                    src_ms=n_ms + 60, seed=31, recv=GFIX_RECV, truth=truth,
+                    kernel="track_chunk_fused")
+    raise ValueError(f"no offline configuration {name!r}")
+
+
+#: The offline phases' configurations, in phase order (22-25).
+SOLVE_PHASES = ("gps_l1_solve_8ch", "galileo_e1b_solve_5ch",
+                "beidou_b1i_solve_6ch", "glonass_l1of_solve_6ch")
+
+
+def solve_run(device, name: str, k_ms: float) -> tuple:
+    """An offline phase's run on the card over its reference test's own
+    signal: (run_receiver's output, the run's record with the fix's
+    errors, the setup)."""
+    st = solve_setup(name)
+    src = ReplaySource(st["sig"], st["sats"], st["src_ms"], st["seed"],
+                       device)
+    seconds = st["n_ms"] * st["sig"].code_period_s
+    out, rec = offline_run(device, src, st["cfg"], st["n_ms"], st["kernel"],
+                           k_ms, seconds)
+    rec.update(sky_prns=sorted(st["truth"]), **fix_errors(out.nav,
+                                                          st["recv"]))
+    return out, rec, st
+
+
+def gps_solve_path(device, k1: dict) -> dict:
+    """gps_l1_solve_8ch: tests/test_full_chain.py:32-69 on the card."""
+    out, rec, st = solve_run(device, "gps_l1_solve_8ch", k1["ms"])
+    lsb = 2.0 ** -19
+    bad = [("missing", p) for p in st["truth"] if p not in out.ephs]
+    for prn, dec in out.ephs.items():
+        t = st["truth"].get(prn)
+        if t is None or dec.IODC != t.IODC or dec.sqrtA != round(
+                t.sqrtA / lsb) * lsb:
+            bad.append((prn, "IODC/sqrtA"))
+    rec.update(k1_shape=k1, eph_mismatches=bad,
+               tows=sorted(set(out.tows.values())))
+    return with_checks(rec, {
+        "every sky SV has a channel":
+            set(rec["sky_prns"]) <= set(rec["channels"]),
+        "every ephemeris as the truth (IODC, sqrtA)":
+            not rec["eph_mismatches"],
+        "TOW exact": rec["tows"] == [FC_TOW0_6S * 6.0],
+        ">= 10 valid epochs": rec["valid_epochs"] >= 10,
+        "mean 3D < 20 m, max < 60 m": rec["valid_epochs"] > 0
+        and rec["mean_3d_err_m"] < 20.0 and rec["max_3d_err_m"] < 60.0,
+        "GDOP < 25": rec["valid_epochs"] > 0 and rec["max_gdop"] < 25.0,
+        "mean speed < 2 m/s, max < 8": rec.get("vel_epochs", 0) >= 10
+        and rec["mean_speed_mps"] < 2.0 and rec["max_speed_mps"] < 8.0,
+    })
+
+
+def galileo_solve_path(device, k2_ms: float) -> dict:
+    """galileo_e1b_solve_5ch: tests/test_galileo.py:199-242 on the card
+    (5 channels, 3,250 periods of 4 ms, 48 dB-Hz)."""
+    out, rec, st = solve_run(device, "galileo_e1b_solve_5ch", k2_ms)
+    rec.update(eph_mismatches=eph_mismatches(
+        out.ephs, st["truth"], ("sqrtA", "e", "M_0", "omega_0", "i_0",
+                                "t_oe", "a_f0", "a_f1", "deltan", "omega",
+                                "IODnav")))
+    return with_checks(rec, {
+        "every ephemeris as the truth": not rec["eph_mismatches"]
+        and rec["ephemerides"] == rec["sky_prns"],
+        ">= 8 valid epochs": rec["valid_epochs"] >= 8,
+        "mean 3D < 25 m, max < 80 m": rec["valid_epochs"] > 0
+        and rec["mean_3d_err_m"] < 25.0 and rec["max_3d_err_m"] < 80.0,
+    })
+
+
+def beidou_solve_path(device, k1: dict) -> dict:
+    """beidou_b1i_solve_6ch: tests/test_beidou.py:176-220 on the card
+    (beidou_constellation's 5 highest SVs, 4.096 Msps, 6 channels,
+    20,600 ms, 48 dB-Hz; K1 at blkp 4,098 with the 'atan' FLL)."""
+    out, rec, st = solve_run(device, "beidou_b1i_solve_6ch", k1["ms"])
+    rec.update(k1_shape=k1, eph_mismatches=eph_mismatches(
+        out.ephs, st["truth"], ("sqrtA", "e", "M_0", "omega_0", "i_0",
+                                "t_oe", "a0", "a1", "deltan", "omega")))
+    return with_checks(rec, {
+        "every D1 ephemeris as the truth": not rec["eph_mismatches"]
+        and rec["ephemerides"] == rec["sky_prns"],
+        ">= 10 valid epochs": rec["valid_epochs"] >= 10,
+        "mean 3D < 25 m, max < 80 m": rec["valid_epochs"] > 0
+        and rec["mean_3d_err_m"] < 25.0 and rec["max_3d_err_m"] < 80.0,
+    })
+
+
+def glonass_solve_path(device, k1: dict) -> dict:
+    """glonass_l1of_solve_6ch: examples/e2e_glonass_fix.py on the card (6
+    SVs on their frequency channels, 4.096 Msps, FDMA acquisition, 10 s;
+    K1 at blkp 4,098, each channel's FDMA carrier base)."""
+    _, rec, _ = solve_run(device, "glonass_l1of_solve_6ch", k1["ms"])
+    rec.update(k1_shape=k1)
+    return with_checks(rec, {
+        "a navigation solution": rec["valid_epochs"] > 0,
+        "mean 3D < 25 m": rec["valid_epochs"] > 0
+        and rec["mean_3d_err_m"] < 25.0,
+    })
+
+
+def l3_dual_path(device, k3_ms: float) -> dict:
+    """glonass_l3oc_track_dual_8ch: track_dual over phase 13's sky (8
+    satellites, pilot + data, 24 Msps, 9 s; the same seeds), its channels
+    from the port's acquisition (the pool with 2 absent satellites); K3 at
+    C = the channels acquired x 256 blocks."""
+    from gnsstpu_torch.runtime.receiver import allocate_channels
+    from gnsstpu_torch.tracking.dual import track_dual
+
+    n_ms = 9000
+    prns = [3, 7, 11, 14, 18, 22, 26, 30]
+    absent = [5, 9]
+    rng = np.random.default_rng(31)
+    dopp = rng.permutation(np.linspace(-3600.0, 3600.0, len(prns)))
+    rates = rng.uniform(-0.55, 0.55, len(prns))
+    cps = (np.arange(len(prns)) * 10230.0 / len(prns)
+           + rng.uniform(0.0, 1000.0, len(prns)))
+    sats, bits = l3_sky(prns, dopp, rates, cps, n_ms + 20, seed=32)
+    t0 = time.perf_counter()
+    src = offline_source(LSIG, sats, n_ms + 20, 33, device)
+    setup = time.perf_counter() - t0
+    acq = AcqConfig(doppler_band=8e3, coherent_ms=1, threshold=2.5,
+                    doppler_step=250.0, prn_list=tuple(prns + absent))
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    x = src.read(0, search.acq_samples_needed(LSIG, acq)).cpu().numpy()
+    res = search.acquire(x, LSIG, acq, device=device)
+    chans = allocate_channels(res, 8, sd=get_signal(LSIG.signal),
+                              if_freq=LSIG.if_freq)
+    t1 = time.perf_counter()
+    tr = track_dual(src, chans, LSIG, LTRK, n_ms, device=device)
+    t2 = time.perf_counter()
+    launches = dict(tk.LAUNCHES)
+    sky = {}
+    t_mid = (n_ms - 250) * 1e-3
+    for c, ch in enumerate(chans):
+        k = prns.index(ch.prn) if ch.prn in prns else None
+        row = {}
+        if k is not None:
+            row["doppler_err_hz"] = float(
+                tr.carr_freq[c, -500:].mean() - LSIG.if_freq
+                - (dopp[k] + rates[k] * t_mid))
+            sync, ok = l3_bits_recovered(
+                {"i_p": tr.i_p[c], "q_p2": tr.q_p2[c]}, bits[ch.prn])
+            row.update(overlay_found=bool(sync.found),
+                       overlay_quality=float(sync.quality), bits_exact=ok)
+        sky[ch.prn] = row
+    wall = t2 - t0
+    rec = {"signal_s": n_ms / 1000.0, "wall_s": wall,
+           "realtime_factor": n_ms / 1000.0 / wall,
+           "stage_s": {"acquire": round(t1 - t0, 4),
+                       "track": round(t2 - t1, 4)},
+           "signal_setup_s": setup,
+           "channels": [c.prn for c in chans], "sky_prns": prns,
+           "kernel": "K3", "launches": launches["track_chunk_dual_fused"],
+           "other_kernel_launches": (launches["track_chunk_fused"]
+                                     + launches["track_chunk_boc_fused"]),
+           "kernel_ms_per_launch": k3_ms,
+           "kernel_share_of_wall": launches["track_chunk_dual_fused"]
+           * k3_ms * 1e-3 / wall,
+           "sky": sky, "refused_modules": refused_modules()}
+    rows = [sky.get(p, {}) for p in prns]
+    return with_checks(rec, {
+        "every sky satellite has a channel": set(prns) <= set(
+            rec["channels"]),
+        "|Doppler - truth| < 5 Hz": all(
+            abs(r.get("doppler_err_hz", 1e9)) < 5.0 for r in rows),
+        "NH sync quality >= 0.9": all(
+            r.get("overlay_found") and r["overlay_quality"] >= 0.9
+            for r in rows),
+        "24 data bits exact": all(r.get("bits_exact") for r in rows),
+    })
+
+
+def pcode_path(device) -> dict:
+    """tests/test_glonass.py:319-366's P-code closed loop on the card: the
+    aperiodic 5.11 Mcps code at 12 Msps, 870 Hz Doppler on frequency
+    channel -1, handed over 15 Hz off; 150 blocks of plain torch ops (no
+    hand kernel: the reference's tracker is a lax.scan, no Pallas)."""
+    from gnsstpu_torch.signals.glonass import generate_p_code
+    from gnsstpu_torch.tracking import pcode
+
+    fs, n_ms, dopp = 12.0e6, 150, 870.0
+    f_carr = 1.246e9 - 437.5e3
+    aid = f_carr / pcode.P_CODE_FREQ
+    chip0 = 3 * pcode.BLOCK_CHIPS + 1234
+    code = generate_p_code((n_ms + 6) * pcode.BLOCK_CHIPS + chip0).astype(
+        np.float64)
+    n = int(fs * (n_ms + 4) * 1e-3)
+    t = np.arange(n) / fs
+    idx = np.floor(chip0 + 0.08 + pcode.P_CODE_FREQ
+                   * (1.0 + dopp / f_carr) * t).astype(np.int64)
+    rng = np.random.default_rng(9)
+    amp = 1.2
+    phase = 2 * np.pi * dopp * t + 0.6
+    chunk = np.stack([amp * code[idx] * np.cos(phase) + rng.normal(0, 1, n),
+                      amp * code[idx] * np.sin(phase) + rng.normal(0, 1, n)],
+                     1).astype(np.float32)
+    tracker = pcode.make_pcode_tracker(
+        fs, 0.0, TrackConfig(dll_bw=5.0, el_spacing=0.3), n_blocks=n_ms,
+        aid_div=aid)
+    st = pcode.PState.init(sample_pos=int(np.searchsorted(idx, chip0)),
+                           chip_off=chip0, doppler_hz=dopp - 15.0,
+                           aid_div=aid, device=device)
+    chunk_d = torch.as_tensor(chunk, device=device)
+    code_d = torch.as_tensor(code.astype(np.float32), device=device)
+    tracker(chunk_d, code_d, st)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, outs = tracker(chunk_d, code_d, st)
+    ip = outs["ip"].cpu().numpy()
+    wall = time.perf_counter() - t0
+    dopp_out = outs["carr_doppler"].cpu().numpy()
+    code_err = outs["code_err"].cpu().numpy()
+    rec = {"blocks": n_ms, "wall_s": wall,
+           "realtime_factor": n_ms * 1e-3 / wall,
+           "device": str(outs["ip"].device),
+           "prompt_power": float(np.abs(ip[-40:]).mean()),
+           "prompt_floor": 0.5 * amp * fs / 1000,
+           "doppler_err_hz": float(np.mean(dopp_out[-40:]) - dopp),
+           "code_err_mean_abs": float(np.abs(code_err[-40:]).mean())}
+    checks = {
+        "on the card": rec["device"].startswith("cuda"),
+        "prompt converged": rec["prompt_power"] > rec["prompt_floor"],
+        "|Doppler - truth| < 2 Hz": abs(rec["doppler_err_hz"]) < 2.0,
+        "code error < 0.04": rec["code_err_mean_abs"] < 0.04,
+        "no jax or gnsstpu module loaded": not refused_modules(),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"pcode checks failed: {failed} {rec}")
+    return rec
+
+
+def cli_solve_path(device) -> dict:
+    """`python -m gnsstpu_torch solve FILE --fs 2.048e6 --if-freq 0
+    --format i8_iq --ms 24000 --channels 8 --log LOG` on phase 22's
+    signal written as an i8_iq file, in a subprocess."""
+    from gnsstpu_torch.nav import geodesy
+
+    sats, _, recv = gps_solve_sky()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    lat, lon, _ = geodesy.cart2geo(*recv, 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, log = os.path.join(tmp, "gps.i8"), os.path.join(tmp, "pvt.log")
+        write_i8_file(SIG, sats, FC_NMS + 50, 21, device, path)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gnsstpu_torch", "solve", path, "--fs",
+             "2.048e6", "--if-freq", "0", "--format", "i8_iq", "--ms",
+             str(FC_NMS), "--channels", "8", "--log", log, "--device",
+             device.type], cwd=repo, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        n_pvt = 0
+        if os.path.exists(log):
+            with open(log) as f:
+                n_pvt = sum(json.loads(ln).get("type") == "pvt" for ln in f
+                            if ln.strip())
+    fix = None
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("{"):
+            fix = json.loads(ln)
+    rec = {"rc": proc.returncode, "wall_s": wall, "pvt_records": n_pvt,
+           "stdout": proc.stdout.splitlines()[:3],
+           "fix": fix, "truth_lat_lon": [float(lat), float(lon)],
+           "stderr_tail": proc.stderr[-300:] if proc.returncode else ""}
+    checks = {
+        "solve exits 0": proc.returncode == 0,
+        "lat / lon within 1e-3 deg": fix is not None
+        and abs(fix["lat_deg"] - lat) < 1e-3
+        and abs(fix["lon_deg"] - lon) < 1e-3,
+        "the log holds PVT records": n_pvt > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"CLI solve checks failed: {failed} {rec}")
+    return rec
+
+
 def main() -> int:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -2261,13 +2823,62 @@ def main() -> int:
     print(f"[21 CLI] {json.dumps(cres21)}", flush=True)
     cli_checks(cres21)
 
-    # 18. K1's launches on each live path in this process.
+    # 22-28. The offline chain, each kernel first timed alone at the
+    # offline path's launch shape (CUDA events).
+    k1_fc = k1_alone(6, 256, dev, SIG, TRK)
+    sres = gps_solve_path(dev, k1_fc)
+    print(f"[22 gps_l1_solve_8ch] {json.dumps(sres)}", flush=True)
+    raise_failed("gps_l1_solve_8ch", sres)
+
+    g_off, g_off_bound = k2_compare(5, 128, dev)
+    k2_off_ms = kernel_times(k2_inputs(5, 128, dev),
+                             tk.track_chunk_boc_fused, None)[0]
+    gsres = galileo_solve_path(dev, k2_off_ms)
+    print(f"[23 galileo_e1b_solve_5ch] K2 at C=5x128 against its twin "
+          f"{json.dumps(g_off)}, bound {json.dumps(g_off_bound)} | "
+          f"{json.dumps(gsres)}", flush=True)
+    raise_failed("galileo_e1b_solve_5ch", gsres)
+
+    k1_bd = k1_alone(5, 256, dev, BSIG, BTRK)
+    bsres = beidou_solve_path(dev, k1_bd)
+    print(f"[24 beidou_b1i_solve_6ch] {json.dumps(bsres)}", flush=True)
+    raise_failed("beidou_b1i_solve_6ch", bsres)
+
+    k1_glo = k1_alone(6, 256, dev, OSIG4, OTRK)
+    osres = glonass_solve_path(dev, k1_glo)
+    print(f"[25 glonass_l1of_solve_6ch] {json.dumps(osres)}", flush=True)
+    raise_failed("glonass_l1of_solve_6ch", osres)
+
+    l_off, l_off_bound = k3_compare(8, 256, dev)
+    k3_off_ms = kernel_times(k3_inputs(8, 256, dev),
+                             tk.track_chunk_dual_fused, None)[0]
+    dres = l3_dual_path(dev, k3_off_ms)
+    print(f"[26 glonass_l3oc_track_dual_8ch] K3 at C=8x256 against its "
+          f"twin {json.dumps(l_off)}, bound {json.dumps(l_off_bound)} | "
+          f"{json.dumps(dres)}", flush=True)
+    raise_failed("glonass_l3oc_track_dual_8ch", dres)
+
+    pres = pcode_path(dev)
+    print(f"[27 pcode] {json.dumps(pres)}", flush=True)
+
+    cres28 = cli_solve_path(dev)
+    print(f"[28 CLI solve] {json.dumps(cres28)}", flush=True)
+
+    # 18. K1's launches on each path in this process (the CLI's run in
+    # its own process, uncounted).
     k1_paths = {"gps_l1_live_12ch": res["k1_launches"],
                 "beidou_b1i_live_12ch": bres["k1_launches"],
                 "glonass_l1of_live_12ch": ores["k1_launches"],
                 "gps_l1_tcp_live_12ch": tres["k1_launches"],
-                "gps_l1_16msps_resampled_12ch": rres["k1_launches"]}
-    print(f"[18 K1 launches by path] {json.dumps(k1_paths)}", flush=True)
+                "gps_l1_16msps_resampled_12ch": rres["k1_launches"],
+                "gps_l1_solve_8ch": sres["launches"],
+                "beidou_b1i_solve_6ch": bsres["launches"],
+                "glonass_l1of_solve_6ch": osres["launches"]}
+    print(f"[18 K1 launches by path] {json.dumps(k1_paths)} | K2: "
+          f"galileo_e1b_live_12ch {gres['k2_launches']}, "
+          f"galileo_e1b_solve_5ch {gsres['launches']} | K3: "
+          f"glonass_l3oc_live_12ch {lres['k3_launches']}, "
+          f"glonass_l3oc_track_dual_8ch {dres['launches']}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "track_chunk_fused", "route": "cuda", "source": K1_SOURCE,
@@ -2277,12 +2888,14 @@ def main() -> int:
          "bound_by": k1_bound_by, "library_ms": None},
         {"name": "track_chunk_boc_fused", "route": "cuda",
          "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": gres["k2_launches"], "max_abs_err": g125["acc_abs"],
+         "launches": gres["k2_launches"] + gsres["launches"],
+         "max_abs_err": g125["acc_abs"],
          "ms": k2_ms, "plain_ms": k2p_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": None},
         {"name": "track_chunk_dual_fused", "route": "cuda",
          "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": lres["k3_launches"], "max_abs_err": l500["acc_abs"],
+         "launches": lres["k3_launches"] + dres["launches"],
+         "max_abs_err": l500["acc_abs"],
          "ms": k3_ms, "plain_ms": k3p_ms, "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": None},
     ]}), flush=True)

@@ -14,11 +14,19 @@ Mirrors `python -m gnsstpu` (gnsstpu/cli.py) on a CUDA device (or
             that fans the telemetry out and takes commands over TCP
             (--station-port), a torch.profiler trace (--profile) and a
             checkpoint of the channel bank (--checkpoint / --resume)
+  solve     the offline chain to a position fix over an IF file
+            (runtime.receiver.run_receiver: acquisition, the chunked
+            tracker, nav decode, PVT), optionally its PVT records as a
+            telemetry log (--log)
   monitor   the channel status board of a telemetry log or, with
             tcp://HOST:PORT, of a receiver's station server
+  analyze   render the analysis panels of a telemetry log (viz; needs
+            matplotlib, which only this command imports)
 
-A device mesh (--mesh) is not ported yet and raises NotImplementedError
-naming its ROADMAP item. A live stream's history and FIFO hold two of
+Not ported yet: a device mesh (track --mesh raises NotImplementedError;
+ROADMAP queue 1 item 8, parallel/) and `bench` (the reference's runs the
+TPU round's bench.py; the port's waits for the H100 benchmark, ROADMAP
+queue 1 item 10). A live stream's history and FIFO hold two of
 the manager's chunks (at least the reference's 1,024 blocks), so no read
 of a superepoch falls off the ring.
 """
@@ -290,6 +298,45 @@ def cmd_acquire(args) -> int:
     return 0
 
 
+def cmd_solve(args) -> int:
+    from gnsstpu_torch.config import ReceiverConfig
+    from gnsstpu_torch.runtime.receiver import run_receiver
+
+    sig = _sig_config(args)
+    cfg = ReceiverConfig(signal=sig, acq=_acq_config(args),
+                         n_channels=args.channels, ms_to_process=args.ms)
+    src = _file_source(args)
+    out = run_receiver(src, cfg, n_ms=args.ms, device=args.device)
+    print(f"acquired: {out.acq.detected_prns()}")
+    print(f"ephemerides decoded: {sorted(out.ephs)}")
+    if args.log and out.nav is not None:
+        # The solution stream as telemetry (the SPS/PVT message family),
+        # so `monitor --page pvt` and `analyze` work on offline solves.
+        from gnsstpu_torch.runtime.telemetry import Telemetry
+
+        with open(args.log, "w") as f:
+            tlm = Telemetry(sink=f)
+            n = out.nav
+            for k in range(len(n.t_ms)):
+                if not n.valid[k]:
+                    continue
+                tlm.pvt(int(n.t_ms[k]), float(n.latitude[k]),
+                        float(n.longitude[k]), float(n.height[k]),
+                        int(n.n_sats[k]),
+                        gdop=round(float(n.dop[k, 0]), 2),
+                        hdop=round(float(n.dop[k, 2]), 2))
+    if out.nav is not None and np.any(out.nav.valid):
+        v = out.nav.valid
+        print(json.dumps({
+            "lat_deg": float(np.mean(out.nav.latitude[v])),
+            "lon_deg": float(np.mean(out.nav.longitude[v])),
+            "h_m": float(np.mean(out.nav.height[v])),
+            "epochs": int(np.sum(v))}))
+        return 0
+    print("no position fix")
+    return 1
+
+
 def cmd_simulate(args) -> int:
     from gnsstpu_torch.sim import IFSimulator, SatParams
 
@@ -383,6 +430,21 @@ def cmd_monitor(args) -> int:
         return 0
 
 
+def cmd_analyze(args) -> int:
+    """Render the offline analysis panels of a telemetry log (the
+    reference's matlab/*.m log-analysis scripts)."""
+    from gnsstpu_torch import viz
+
+    os.makedirs(args.out, exist_ok=True)
+    health_png = os.path.join(args.out, "health.png")
+    viz.plot_health(args.log, health_png)
+    print(f"wrote {health_png}")
+    ekf_png = os.path.join(args.out, "ekf.png")
+    if viz.plot_ekf_log(args.log, ekf_png):
+        print(f"wrote {ekf_png}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="gnsstpu_torch", description=__doc__,
                                  formatter_class=argparse.
@@ -461,6 +523,16 @@ def main(argv=None) -> int:
                    help="not ported yet (raises)")
     p.set_defaults(fn=cmd_track)
 
+    p = sub.add_parser("solve", help="full chain to a position fix")
+    p.add_argument("file")
+    _sig_args(p)
+    _acq_args(p)
+    p.add_argument("--ms", type=int, default=40000)
+    p.add_argument("--channels", type=int, default=8)
+    p.add_argument("--log", default=None,
+                   help="write PVT solutions as telemetry JSONL")
+    p.set_defaults(fn=cmd_solve)
+
     p = sub.add_parser("simulate", help="write a synthetic IF file")
     p.add_argument("out")
     _sig_args(p)
@@ -487,6 +559,12 @@ def main(argv=None) -> int:
                    help="command file the live receiver polls "
                         "(interactive ':' commands append here)")
     p.set_defaults(fn=cmd_monitor)
+
+    p = sub.add_parser("analyze",
+                       help="render analysis panels from a telemetry log")
+    p.add_argument("log")
+    p.add_argument("--out", default="analysis")
+    p.set_defaults(fn=cmd_analyze)
 
     args = ap.parse_args(argv)
     return args.fn(args)

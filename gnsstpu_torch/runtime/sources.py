@@ -48,6 +48,31 @@ class ArraySource:
         return len(self.samples)
 
 
+class DeviceArraySource:
+    """Source over f32 [N, 2] samples resident on the device: read()
+    serves device tensors (zeros outside [0, N)), so the offline drivers
+    (tracking.driver.run_chunks) move no samples over the host link.
+    Acquisition copies its leading window to the host."""
+
+    def __init__(self, samples: torch.Tensor):
+        self.samples = samples.to(torch.float32).reshape(-1, 2)
+        self.device = self.samples.device
+
+    def read(self, start: int, count: int) -> torch.Tensor:
+        lo = max(start, 0)
+        hi = min(start + count, len(self.samples))
+        if lo == start and hi - lo == count:
+            return self.samples[lo:hi]
+        out = torch.zeros((count, 2), dtype=torch.float32,
+                          device=self.device)
+        if hi > lo:
+            out[lo - start: hi - start] = self.samples[lo:hi]
+        return out
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+
 class FileSource:
     """Raw IF sample file source.
 

@@ -6,6 +6,10 @@ reference does; the device then synthesizes every block from float32
 local ramps and adds complex Gaussian noise drawn from a torch.Generator
 seeded by (seed, ms0). The noise therefore differs from the reference's
 jax.random bits for the same seed; the noise-free signal is the same.
+With noise="jax" the noise is the reference's own draw,
+jax.random.normal(fold_in(PRNGKey(seed), ms0)) for I and its fold_in(.., 1)
+for Q, made by sim.jaxrand on the device without JAX: a reference test's
+signal is then made again to the last bits of float32 erfinv.
 
 Truth signal per satellite (complex IF):
     s(t) = A * d(t - tau) * c(t - tau) * exp(+i*(2*pi*(f_if + fd)*t
@@ -48,7 +52,10 @@ class IFSimulator:
 
     def __init__(self, cfg: SignalConfig, sats: Sequence[SatParams],
                  noise_sigma: float = 1.0, seed: int = 0, *,
-                 device="cuda"):
+                 device="cuda", noise: str = "torch"):
+        if noise not in ("torch", "jax"):
+            raise ValueError(f"noise must be 'torch' or 'jax', not {noise!r}")
+        self.noise = noise
         self.cfg = cfg
         self.sats = list(sats)
         self.noise_sigma = float(noise_sigma)
@@ -143,11 +150,19 @@ class IFSimulator:
             si += env * torch.cos(ang)
             sq += env * torch.sin(ang)
         if self.noise_sigma > 0:
-            g = torch.Generator(device=dev)
-            g.manual_seed(self.seed * 1_000_003 + int(ms0))
             nsig = self.noise_sigma * f32(np.sqrt(0.5))
-            si += nsig * torch.randn(si.shape, generator=g, device=dev)
-            sq += nsig * torch.randn(sq.shape, generator=g, device=dev)
+            if self.noise == "jax":
+                from gnsstpu_torch.sim import jaxrand
+
+                key = jaxrand.fold_in(jaxrand.prng_key(self.seed), int(ms0))
+                si += nsig * jaxrand.normal(key, tuple(si.shape), dev)
+                sq += nsig * jaxrand.normal(jaxrand.fold_in(key, 1),
+                                            tuple(sq.shape), dev)
+            else:
+                g = torch.Generator(device=dev)
+                g.manual_seed(self.seed * 1_000_003 + int(ms0))
+                si += nsig * torch.randn(si.shape, generator=g, device=dev)
+                sq += nsig * torch.randn(sq.shape, generator=g, device=dev)
         return torch.stack([si.reshape(-1), sq.reshape(-1)], dim=-1)
 
     def generate(self, n_ms: int, ms0: int = 0) -> np.ndarray:

@@ -7,6 +7,10 @@ Two engines with one interface, as the reference's:
   * make_fused_boc_tracker — kernel K2 (ops.track_kernel.
     track_chunk_boc_fused): the state packed into its 16 float lanes, its
     24 output lanes unpacked into the same state / output tuples.
+track_boc is the offline chunked driver around either engine
+(tracking.driver.run_chunks), with the reference's BocTrackResults; for
+K2 its abs_sample takes off the replica's half slip
+(tracking.driver.replica_slip_samples).
 Loops (reference GALILEO/E1/tracking.sci:300-430): PLL/FLL on P_P, the DLL
 on normalized |P_E| - |P_L| with the code clock aided by carrier/1540, the
 SLL on normalized |E_P| - |L_P| with the meandr clock aided by
@@ -20,13 +24,14 @@ per channel, stab [Rs, 3, bp] shared.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from gnsstpu_torch.config import SignalConfig, TrackConfig
-from gnsstpu_torch.device import f32
+from gnsstpu_torch.device import f32, resolve_device, u32_tensor
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.ops.boc import (BocBlockOut, BocCorrState,
                                    correlate_block_boc)
@@ -172,6 +177,104 @@ def make_boc_tracker(sig: SignalConfig, trk: TrackConfig, *, n_blocks: int,
         return state, BocTrackOut(acc, *rest)
 
     return track_chunk
+
+
+@dataclasses.dataclass
+class BocTrackResults:
+    """[C, n_blocks] arrays at the code-period (4 ms) cadence."""
+
+    prn: np.ndarray
+    i_pp: np.ndarray
+    q_pp: np.ndarray
+    i_pe: np.ndarray
+    q_pe: np.ndarray
+    i_pl: np.ndarray
+    q_pl: np.ndarray
+    i_ep: np.ndarray
+    q_ep: np.ndarray
+    i_lp: np.ndarray
+    q_lp: np.ndarray
+    carr_freq: np.ndarray
+    code_freq: np.ndarray
+    sub_freq: np.ndarray
+    abs_sample: np.ndarray
+    dll_disc: np.ndarray
+    sll_disc: np.ndarray
+    pll_disc: np.ndarray
+
+
+def track_boc(source, channels: Sequence, sig: SignalConfig,
+              trk: TrackConfig, n_blocks: int, chunk_blocks: int = 128,
+              code_mode: str = "auto", *, device="cuda") -> BocTrackResults:
+    """Chunked host driver around the BOC engines (Galileo E1B) on
+    `device` ('cuda', the default; or 'cpu'). channels: ChannelInit
+    (tracking.driver); n_blocks counts 4 ms code periods.
+
+    code_mode: 'auto' or 'fused' (kernel K2, its tap tables built for
+    these PRNs; its plain twin on the CPU) or 'gather' (the exact scan
+    engine)."""
+    from gnsstpu_torch.ops import nco
+    from gnsstpu_torch.signals import galileo_e1
+    from gnsstpu_torch.tracking.driver import (chunk_samples,
+                                               replica_slip_samples,
+                                               run_chunks)
+    from gnsstpu_torch.tracking.engines import resolve_engine
+
+    dev = resolve_device(device)
+    code_mode = resolve_engine(code_mode)
+    prns = [ch.prn for ch in channels]
+
+    if code_mode == "fused":
+        ctab, stab, _, _ = boc_fused_tables(sig, trk, prns)
+        step = make_fused_boc_tracker(sig, trk, n_blocks=chunk_blocks)
+    else:
+        def pad(c):
+            return np.concatenate([c[-1:], c, c[:1]]).astype(np.float32)
+
+        ctab = np.stack([pad(galileo_e1.primary_code(p)) for p in prns])
+        stab = pad(galileo_e1.subcarrier())
+        step = make_boc_tracker(sig, trk, n_blocks=chunk_blocks)
+    ctab = torch.as_tensor(ctab, device=dev)
+    stab = torch.as_tensor(stab, device=dev)
+    carr_base = u32_tensor(np.array(
+        [nco.freq_to_step_u32(sig.if_freq + ch.if_offset_hz, sig.fs)
+         for ch in channels], np.uint32), dev)
+    state = BocTrackState.init(
+        np.array([ch.code_phase for ch in channels], np.int64),
+        np.array([ch.doppler_hz for ch in channels], np.float32),
+        device=dev)
+
+    def tracker(chunk, st):
+        st, out = step(chunk, ctab, stab, carr_base, st)
+        return st, {**out.acc._asdict(),
+                    **{k: getattr(out, k) for k in out._fields[1:]}}
+
+    f, ends = run_chunks(
+        source, tracker, state, [ch.code_phase for ch in channels],
+        chunk_len=chunk_samples(sig, n_blocks, chunk_blocks,
+                                sig.code_period_s),
+        n_chunks=int(np.ceil(n_blocks / chunk_blocks)), device=dev)
+    f = {k: v[:, :n_blocks] for k, v in f.items()}
+    rem = f["rem_code_phase"].astype(np.float64)
+    abs_sample = (ends[:, :n_blocks]
+                  - rem * (sig.fs / (sig.code_freq / 2.0)))
+    if code_mode == "fused":
+        # K2's code taps run at the nominal rate (tracking.driver).
+        abs_sample = abs_sample + replica_slip_samples(
+            f["code_freq_delta"], f["blksize"], sig.code_freq / 2.0)
+    return BocTrackResults(
+        prn=np.array(prns),
+        i_pp=f["i_pp"], q_pp=f["q_pp"], i_pe=f["i_pe"], q_pe=f["q_pe"],
+        i_pl=f["i_pl"], q_pl=f["q_pl"], i_ep=f["i_ep"], q_ep=f["q_ep"],
+        i_lp=f["i_lp"], q_lp=f["q_lp"],
+        carr_freq=sig.if_freq + f["carr_doppler"].astype(np.float64),
+        code_freq=sig.code_freq / 2.0 + f["code_freq_delta"].astype(
+            np.float64),
+        sub_freq=sig.code_freq + f["sub_freq_delta"].astype(np.float64),
+        abs_sample=abs_sample,
+        dll_disc=f["dll_disc"], sll_disc=f["sll_disc"],
+        pll_disc=f["pll_disc"],
+    )
 
 
 # ---------------------------------------------------------------------------

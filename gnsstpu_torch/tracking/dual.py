@@ -20,19 +20,22 @@ six planes (pilot E/P/L, data E/P/L), as int8 (the taps are exactly +-1)
 without the TPU's two padding planes: tab [C, R, 6, bp], each plane padded
 with zeros from blkp to bp = blkp rounded up to 128 lanes, as the TPU pads
 its lanes.
-track_dual, the offline chunked tracker, is not ported (ROADMAP queue 1,
-item 3).
+track_dual is the offline chunked driver around either engine
+(tracking.driver.run_chunks), with the reference's DualTrackResults; for
+K3 its abs_sample takes off the replica's half slip
+(tracking.driver.replica_slip_samples).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from gnsstpu_torch.config import SignalConfig, TrackConfig
-from gnsstpu_torch.device import f32
+from gnsstpu_torch.device import f32, resolve_device, u32_tensor
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.ops.dualcode import DualBlockOut, correlate_block_dual
 from gnsstpu_torch.tracking import loop_filters
@@ -121,6 +124,103 @@ def make_dual_tracker(sig: SignalConfig, trk: TrackConfig, *,
         return state, DualTrackOut(acc, *rest)
 
     return track_chunk
+
+
+@dataclasses.dataclass
+class DualTrackResults:
+    """[C, n_blocks] arrays at the 1 ms code-period cadence."""
+
+    prn: np.ndarray
+    i_p: np.ndarray
+    q_p: np.ndarray
+    i_e: np.ndarray
+    q_e: np.ndarray
+    i_l: np.ndarray
+    q_l: np.ndarray
+    i_p2: np.ndarray
+    q_p2: np.ndarray
+    carr_freq: np.ndarray
+    code_freq: np.ndarray
+    abs_sample: np.ndarray
+    dll_disc: np.ndarray
+    pll_disc: np.ndarray
+
+
+def track_dual(source, channels: Sequence, sig: SignalConfig,
+               trk: TrackConfig, n_ms: int, chunk_ms: int = 256,
+               code_mode: str = "auto", *, device="cuda"
+               ) -> DualTrackResults:
+    """Chunked host driver for GLONASS L3OC data + pilot tracking on
+    `device` ('cuda', the default; or 'cpu').
+
+    channels: ChannelInit (tracking.driver); channels[].prn is the
+    satellite number 1..31, the pilot code is code(prn) and the data code
+    code(prn + 32) (signals.glonass_l3). code_mode: 'auto' or 'fused'
+    (kernel K3, its tap table built for these satellites; its plain twin
+    on the CPU) or 'gather' (the exact scan engine).
+    """
+    from gnsstpu_torch.ops import nco
+    from gnsstpu_torch.signals import glonass_l3
+    from gnsstpu_torch.tracking.driver import (chunk_samples,
+                                               replica_slip_samples,
+                                               run_chunks)
+    from gnsstpu_torch.tracking.engines import resolve_engine
+
+    dev = resolve_device(device)
+    code_mode = resolve_engine(code_mode)
+    prns = [ch.prn for ch in channels]
+    if code_mode == "fused":
+        tab = torch.as_tensor(dual_tap_rows(sig, trk, prns), device=dev)
+        fused = make_fused_dual_tracker(sig, trk, n_blocks=chunk_ms)
+
+        def step(chunk, cb, st):
+            return fused(chunk, tab, cb, st)
+    else:
+        def codes(fn):
+            return torch.as_tensor(np.stack([
+                np.concatenate([c[-1:], c, c[:1]]).astype(np.float32)
+                for c in (glonass_l3.generate_l3_code(fn(p))
+                          for p in prns)]), device=dev)
+
+        pilot = codes(glonass_l3.pilot_prn)
+        data = codes(glonass_l3.data_prn)
+        scan = make_dual_tracker(sig, trk, n_blocks=chunk_ms)
+
+        def step(chunk, cb, st):
+            return scan(chunk, pilot, data, cb, st)
+    carr_base = u32_tensor(np.array(
+        [nco.freq_to_step_u32(sig.if_freq + ch.if_offset_hz, sig.fs)
+         for ch in channels], np.uint32), dev)
+    state = TrackState.init(
+        np.array([ch.code_phase for ch in channels], np.int64),
+        np.array([ch.doppler_hz for ch in channels], np.float32),
+        aid_div=trk.aid_div, device=dev)
+
+    def tracker(chunk, st):
+        st, out = step(chunk, carr_base, st)
+        return st, {**out.acc._asdict(),
+                    **{k: getattr(out, k) for k in out._fields[1:]}}
+
+    f, ends = run_chunks(
+        source, tracker, state, [ch.code_phase for ch in channels],
+        chunk_len=chunk_samples(sig, n_ms, chunk_ms),
+        n_chunks=int(np.ceil(n_ms / chunk_ms)), device=dev)
+    f = {k: v[:, :n_ms] for k, v in f.items()}
+    rem = f["rem_code_phase"].astype(np.float64)
+    abs_sample = ends[:, :n_ms] - rem * (sig.fs / sig.code_freq)
+    if code_mode == "fused":
+        # K3's taps run at the nominal rate (tracking.driver).
+        abs_sample = abs_sample + replica_slip_samples(
+            f["code_freq_delta"], f["blksize"], sig.code_freq)
+    return DualTrackResults(
+        prn=np.array(prns),
+        i_p=f["ip"], q_p=f["qp"], i_e=f["ie"], q_e=f["qe"],
+        i_l=f["il"], q_l=f["ql"], i_p2=f["ip2"], q_p2=f["qp2"],
+        carr_freq=sig.if_freq + f["carr_doppler"].astype(np.float64),
+        code_freq=sig.code_freq + f["code_freq_delta"].astype(np.float64),
+        abs_sample=abs_sample,
+        dll_disc=f["dll_disc"], pll_disc=f["pll_disc"],
+    )
 
 
 # ---------------------------------------------------------------------------

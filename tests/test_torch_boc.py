@@ -389,3 +389,67 @@ def test_cuda_k2_matches_plain_twin(cuda_device, chunk, handoff, case,
         else:
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
                                        atol=16.0)
+
+
+def _fused_interpret(monkeypatch):
+    """The reference's track_boc on its Pallas kernel in interpret mode
+    (its fused engine asks for a TPU otherwise); gnsstpu is not edited."""
+    import functools
+
+    monkeypatch.setattr(jboc, "make_fused_boc_tracker", functools.partial(
+        jboc.make_fused_boc_tracker, interpret=True))
+
+
+@pytest.mark.parametrize("engine", ["gather", "fused"])
+def test_track_boc_matches_reference(live_samples, engine, monkeypatch):
+    """The offline driver of both packages over 60 code periods (240 ms)
+    in chunks of 24 (three rebases): 'gather' against 'gather' with the
+    scan tolerances above, the port's 'fused' (K2's plain twin) against
+    the reference's Pallas kernel in interpret mode with K2's. Block
+    geometry exact in both pairings; the f64 abs_sample exact for
+    'gather', within 5e-4 chip after the port's half-slip term for
+    'fused'."""
+    from gnsstpu.runtime.sources import ArraySource as JArraySource
+    from gnsstpu.tracking.driver import ChannelInit as JChannelInit
+    from gnsstpu_torch.runtime.sources import ArraySource
+
+    if engine == "fused":
+        _fused_interpret(monkeypatch)
+    n_blocks, chunk_blocks = 60, 24
+    spchip = SIG.fs / SIG.code_freq
+    s = SATS[0]
+    chans = [JChannelInit(prn=s.prn, code_phase=int(round(
+        s.code_phase_chips * spchip)) % SPC, doppler_hz=s.doppler_hz + 7.0)]
+    ref = jboc.track_boc(JArraySource(live_samples), chans, SIG, TRK,
+                         n_blocks, chunk_blocks=chunk_blocks,
+                         code_mode=engine)
+    before = tk.LAUNCHES["track_chunk_boc_fused"]
+    got = tboc.track_boc(ArraySource(live_samples), [to_port(c)
+                                                     for c in chans],
+                         TSIG, TTRK, n_blocks, chunk_blocks=chunk_blocks,
+                         code_mode=engine, device="cpu")
+    assert tk.LAUNCHES["track_chunk_boc_fused"] == before
+    assert got.i_pp.shape == (1, n_blocks)
+    np.testing.assert_array_equal(got.prn, ref.prn)
+    if engine == "gather":
+        np.testing.assert_array_equal(got.abs_sample, ref.abs_sample)
+    else:
+        # The port's half-slip term (tracking.driver), which the
+        # reference's drivers lack, at the nominal block length.
+        from gnsstpu_torch.tracking.driver import replica_slip_samples
+        slip = replica_slip_samples(
+            ref.code_freq - SIG.code_freq / 2.0,
+            np.full(ref.code_freq.shape, SPC), SIG.code_freq / 2.0)
+        np.testing.assert_allclose(got.abs_sample, ref.abs_sample + slip,
+                                   rtol=0,
+                                   atol=5e-4 * SIG.fs / (SIG.code_freq / 2.0))
+    rtol, atol = (1e-5, ACC_ATOL) if engine == "gather" else (2e-3, 16.0)
+    for name in ("i_pp", "q_pp", "i_pe", "q_pe", "i_pl", "q_pl", "i_ep",
+                 "q_ep", "i_lp", "q_lp"):
+        np.testing.assert_allclose(getattr(got, name), getattr(ref, name),
+                                   rtol=rtol, atol=atol, err_msg=name)
+    dtol = 1e-3 if engine == "gather" else 0.05
+    for name in ("carr_freq", "code_freq", "sub_freq"):
+        np.testing.assert_allclose(getattr(got, name), getattr(ref, name),
+                                   rtol=0, atol=dtol, err_msg=name)
+    assert abs(got.carr_freq[0, -10:].mean() - 510.0) < 5.0

@@ -4,8 +4,10 @@ the channel bank (--checkpoint) and warm-restarts from it (--resume);
 `track --listen` takes a radio's packed bytes over TCP with a station
 server and a profiler trace; `track FILE --source-fs` resamples the file
 (also streamed, --stream); `monitor LOG` renders the reference's board;
-`simulate` writes a file that `track` and `acquire` find the sky in. Only
---mesh, not ported yet, raises instead of being ignored."""
+`simulate` writes a file that `track` and `acquire` find the sky in;
+`solve FILE` prints the reference's acquisition and decode lines and exit
+code; `analyze LOG` writes the reference's panels. Only --mesh, not ported
+yet, raises instead of being ignored."""
 
 import json
 import os
@@ -258,3 +260,44 @@ def test_simulate_round_trip(tmp_path, capsys):
     assert abs(det[3]["carr_freq_hz"] - 1200.0) < 300.0
     assert main(["track", out, *ARGS]) == 0
     assert "live PRNs at end: [3, 17]" in capsys.readouterr().out
+
+
+def test_solve_matches_reference(if_file, capsys):
+    """`solve FILE` of both packages on the same short file (0.8 s: two
+    SVs acquired, no subframe, no fix): the same `acquired:` and
+    `ephemerides decoded:` lines and the same exit code."""
+    from gnsstpu.cli import main as jmain
+
+    args = ["--fs", "2.048e6", "--if-freq", "0", "--ms", "800",
+            "--channels", "3", "--band", "6e3", "--threshold", "2.4"]
+    outs = []
+    for fn, extra in ((main, ["--device", "cpu"]), (jmain, [])):
+        rc = fn(["solve", if_file, *args, *extra])
+        lines = capsys.readouterr().out.splitlines()
+        outs.append((rc, [ln for ln in lines
+                          if ln.startswith(("acquired:", "ephemerides"))],
+                     lines[-1]))
+    assert outs[0] == outs[1]
+    assert outs[0] == (1, ["acquired: [5, 12]", "ephemerides decoded: []"],
+                       "no position fix")
+
+
+def test_analyze_writes_the_reference_panels(if_file, tmp_path, capsys):
+    """`analyze LOG --out DIR` of both packages on one telemetry log (a
+    port `track --navigate` run) writes the same files and says so."""
+    from gnsstpu.cli import main as jmain
+
+    log = str(tmp_path / "tlm.jsonl")
+    assert main(["track", if_file, *ARGS, "--navigate", "--log", log]) == 0
+    capsys.readouterr()
+    said = []
+    for fn, sub in ((main, "port"), (jmain, "ref")):
+        out = tmp_path / sub
+        assert fn(["analyze", log, "--out", str(out)]) == 0
+        said.append([ln.replace(str(out), "DIR") for ln in
+                     capsys.readouterr().out.splitlines()])
+        assert sorted(p.name for p in out.iterdir()) == sorted(
+            ln.rsplit("/", 1)[1] for ln in said[-1])
+    assert said[0] == said[1]
+    assert "wrote DIR/health.png" in said[0]
+    assert os.path.getsize(tmp_path / "port" / "health.png") > 0

@@ -3,8 +3,8 @@
 gnsstpu_torch carries its own copy of every gnsstpu module that it or
 chip_smoke.py reaches (config, signal definitions, code tables, nav
 decode and PVT, the online navigator, telemetry, the command console, the
-checkpoint file format, the remote station) and of the ring FIFO's C++
-source.
+checkpoint file format, the remote station, the diagnostic plots) and of
+the ring FIFO's C++ source.
 Each copy is the origin verbatim except for the import prefix
 (`gnsstpu.` -> `gnsstpu_torch.` on import lines) and one docstring line
 naming the origin. test_copies_match_their_origin is the drift guard: a
@@ -37,6 +37,7 @@ COPIES = (
     "nav/beidou.py", "nav/galileo.py", "nav/viterbi.py", "nav/glonass_l3.py",
     "runtime/navigator.py", "runtime/telemetry.py", "runtime/console.py",
     "runtime/checkpoint.py", "runtime/remote.py", "runtime/station.py",
+    "viz.py",
 )
 #: Binary data copied byte for byte.
 DATA = ("signals/data/galileo_e1_codes.npz",)

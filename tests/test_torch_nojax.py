@@ -52,9 +52,22 @@ SCRIPT = textwrap.dedent("""
     from gnsstpu_torch.runtime.manager import ChannelManager, SlotState
     from gnsstpu_torch.runtime.sources import PackedArraySource
     from gnsstpu_torch.signals import galileo_e1
+    from gnsstpu_torch.runtime.receiver import run_receiver
     from gnsstpu_torch.sim import IFSimulator, SatParams
+    from gnsstpu_torch.signals import galileo_e1, glonass_l3
+    from gnsstpu_torch.tracking.boc import track_boc
+    from gnsstpu_torch.tracking.driver import ChannelInit, track
+    from gnsstpu_torch.tracking.dual import track_dual
+    from gnsstpu_torch import TrackConfig
 
     sig = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
+    gsig = SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
+                        code_freq=galileo_e1.SUB_FREQ,
+                        code_length=galileo_e1.SUB_LENGTH)
+    lsig = SignalConfig(signal="glonass_l3oc", if_freq=0.0, fs=12.0e6,
+                        code_freq=glonass_l3.CODE_FREQ,
+                        code_length=glonass_l3.CODE_LENGTH)
+    chans = [ChannelInit(prn=3, code_phase=0, doppler_hz=0.0)]
     sats = [SatParams(prn=5, doppler_hz=900.0, code_phase_chips=200.5,
                       cn0_dbhz=47.0)]
     x = IFSimulator(sig, sats, noise_sigma=1.0, seed=3,
@@ -153,7 +166,9 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("entry", ["acquire", "IFSimulator",
                                    "ChannelManager", "ResampledSource",
-                                   "polyphase_resample"])
+                                   "polyphase_resample", "track",
+                                   "track_boc", "track_dual",
+                                   "run_receiver"])
 def test_entry_points_default_to_the_card(entry):
     """Called without `device`, an entry point asks for the card: on a
     host without one it raises, never quietly running on the CPU."""
@@ -163,9 +178,22 @@ def test_entry_points_default_to_the_card(entry):
                                             polyphase_resample)
     from gnsstpu_torch.runtime.manager import ChannelManager
     from gnsstpu_torch.runtime.sources import ArraySource
+    from gnsstpu_torch.runtime.receiver import run_receiver
     from gnsstpu_torch.sim import IFSimulator, SatParams
+    from gnsstpu_torch.signals import galileo_e1, glonass_l3
+    from gnsstpu_torch.tracking.boc import track_boc
+    from gnsstpu_torch.tracking.driver import ChannelInit, track
+    from gnsstpu_torch.tracking.dual import track_dual
+    from gnsstpu_torch import TrackConfig
 
     sig = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
+    gsig = SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
+                        code_freq=galileo_e1.SUB_FREQ,
+                        code_length=galileo_e1.SUB_LENGTH)
+    lsig = SignalConfig(signal="glonass_l3oc", if_freq=0.0, fs=12.0e6,
+                        code_freq=glonass_l3.CODE_FREQ,
+                        code_length=glonass_l3.CODE_LENGTH)
+    chans = [ChannelInit(prn=3, code_phase=0, doppler_hz=0.0)]
     calls = {
         "acquire": lambda: acquire(
             np.zeros((8 * 2048, 2), np.float32), sig,
@@ -180,10 +208,24 @@ def test_entry_points_default_to_the_card(entry):
             2.048e6).device,
         "polyphase_resample": lambda: polyphase_resample(
             np.zeros((4096, 2), np.float32), 1, 2),
+        "track": lambda: track(
+            ArraySource(np.zeros((8192, 2), np.float32)), chans, sig,
+            TrackConfig(), 2),
+        "track_boc": lambda: track_boc(
+            ArraySource(np.zeros((8192, 2), np.float32)), chans, gsig,
+            TrackConfig(), 2),
+        "track_dual": lambda: track_dual(
+            ArraySource(np.zeros((8192, 2), np.float32)), chans, lsig,
+            TrackConfig(), 2),
+        "run_receiver": lambda: run_receiver(
+            ArraySource(np.zeros((8 * 2048, 2), np.float32)),
+            ReceiverConfig(signal=sig, acq=AcqConfig(coherent_ms=1,
+                                                     doppler_band=1e3),
+                           n_channels=1), 2),
     }
     if torch.cuda.is_available():
         got = calls[entry]()
-        if entry not in ("acquire", "polyphase_resample"):
+        if entry in ("IFSimulator", "ChannelManager", "ResampledSource"):
             assert got.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="is_available"):
