@@ -9,7 +9,10 @@ GPS path over TCP with the ring FIFO and a remote station, a 16 Msps
 stream resampled on the card, and the command line), then the offline
 chain (phases 22-28: runtime.receiver.run_receiver, the chunked
 trackers, the P-code loop and the CLI's solve, each at the configuration
-of the reference test it names):
+of the reference test it names), then the device mesh (phases 29-35:
+parallel/, the GPS path sharded over channels, sharded K1, the sharded
+and the time-block searches, torch.distributed, track --mesh, and the
+Galileo and L3OC paths sharded over channels with K2 and K3 per shard):
   * GPS L1 C/A at the benchmark configuration (bench.py::bench_manager):
     2.048 Msps complex, 12 channels over an 11-satellite geometry-true sky
     plus 2 absent PRNs in the pool, 500 ms epochs, 8-epoch superepochs,
@@ -174,7 +177,49 @@ Phases (each prints one line; any failure raises and exits non-zero):
      gnsstpu_torch solve FILE --fs 2.048e6 --if-freq 0 --format i8_iq
      --ms 24000 --channels 8 --log LOG` in a subprocess: exit 0, a fix
      within 1e-3 deg of the truth, PVT records in the log;
- 18. (printed after 28) K1's launches on each of its paths in this
+ 29. gps_l1_live_12ch_mesh2: phase 5's configuration and signal through
+     ChannelManager(mesh=make_mesh([("channel", 2)])) (one card: both
+     shards on it, each launching K1 on its own stream, with make_mesh's
+     warning): records and the prompt streams (i_p, q_p, carr_doppler,
+     abs_sample, carr_cycles) bit-identical to phase 5's run, phase 5's
+     fix limits, K1 launched twice phase 5's count (once per shard per
+     epoch), the state split over the mesh's devices; its realtime
+     factor and stage walls beside phase 5's;
+ 30. sharded K1 alone: C=48 x 500 split 4 ways over
+     make_sharded_fused_tracker, each shard on its own stream, outputs
+     and state bit-identical to one C=48 x 500 launch; ms per sharded
+     step and per single launch (CUDA events), the four launches alone
+     on their streams and on one stream, and the time the host takes to
+     enqueue a step;
+ 31. the cold search (32 PRNs x the 29 Doppler bins of a 7 kHz band
+     padded to 32 x 2,048 lags, two 2 ms windows) on a channel=2 x
+     doppler=2 mesh: code_phase and doppler_bin equal to the unsharded
+     cube's, the metric within rtol 1e-5; ms (CUDA events) and peak
+     device memory of each;
+ 32. time-block long coherent acquisition (parallel.timeblock): GPS
+     2.048 Msps, K = 20 code periods over time=4, 32 PRNs x 41 Doppler
+     bins 25 Hz apart, a 34 dB-Hz satellite that a 1 ms search misses:
+     the peak at its PRN and bin within 2 samples of its code phase,
+     against reference_coherent_power on its row and two others within
+     normalised atol 2e-3, time=1 (the tail-only halo) the same; ms and
+     peak device memory of each;
+ 33. phase 32's search in a torch.distributed world (NCCL over a
+     localhost TCP store): two processes on two cards at time=2, else
+     one at time=1 (this script again, with --timeblock-worker); the
+     halo all-gather and the all_reduce run through NCCL in a world of
+     one too; the peak in phase 32's cell, the cube against
+     reference_coherent_power within normalised atol 2e-3;
+ 34. the CLI: `python -m gnsstpu_torch track FILE ... --mesh channel=2`
+     on phase 28's file against the same command without --mesh, each
+     in a subprocess: both exit 0 and their telemetry records (all but
+     the wall-clock stamps and stage timings) equal;
+ 35. galileo_e1b_live_12ch_mesh2 and glonass_l3oc_live_12ch_mesh2:
+     phases 9's and 13's configurations and signals through
+     ChannelManager(mesh=make_mesh([("channel", 2)])): K2 and K3 launched
+     once per shard per epoch (twice the unsharded count), records and
+     prompt streams (with L3OC's data prompts) bit-identical to the
+     unsharded runs;
+ 18. (printed after 35) K1's launches on each of its paths in this
      process (the CLI's are its own process's), K2's and K3's by path;
 Phases 22-25 track the very signal of the reference test they name: the
 port's simulator with the reference's noise (IFSimulator(noise="jax"),
@@ -211,6 +256,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -227,6 +273,13 @@ from gnsstpu_torch.ops import resample as rs
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.ops import unpack as up
 from gnsstpu_torch.ops.resample import ResampledSource
+from gnsstpu_torch.parallel import (make_distributed_mesh, make_mesh,
+                                    make_sharded_fused_tracker,
+                                    shard_acquisition_inputs,
+                                    shard_fused_inputs)
+from gnsstpu_torch.parallel.mesh import Sharded, tree_leaves
+from gnsstpu_torch.parallel.timeblock import (long_coherent_acquire,
+                                              reference_coherent_power)
 from gnsstpu_torch.runtime import OnlineNavigator, Telemetry
 from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.remote import StationServer, StationSocket
@@ -368,11 +421,12 @@ def rows_used(rem0, rem_out, offs, ph, n_rows) -> np.ndarray:
     return np.stack(rows, axis=-1).transpose(1, 0, 2).astype(np.int64)
 
 
-def k1_inputs(C: int, n_blocks: int, device, sig=SIG, trk=TRK):
-    """K1's tensor and static arguments for test_track_kernel.py's
-    _setup widened to C channels, with the signal from the port's
-    simulator: up to 12 satellites (GLONASS: frequency channels, each at
-    its FDMA offset), channel i tracking satellite i mod 12."""
+def k1_track_inputs(C: int, n_blocks: int, device, sig=SIG, trk=TRK):
+    """The fused tracker's (chunk, tap rows, consts, state) for
+    test_track_kernel.py's _setup widened to C channels, with the signal
+    from the port's simulator: up to 12 satellites (GLONASS: frequency
+    channels, each at its FDMA offset), channel i tracking satellite i
+    mod 12."""
     sd = get_signal(sig.signal)
     zero = sd.fdma_zero_prn
     n = min(C, 12)
@@ -400,7 +454,13 @@ def k1_inputs(C: int, n_blocks: int, device, sig=SIG, trk=TRK):
         np.array([sats[i].doppler_hz + 37.0 for i in ch], np.float32),
         aid_div=trk.aid_div, device=device)
     consts = (u32_tensor(cb, device), torch.as_tensor(ia, device=device))
-    args = tfused.kernel_inputs(chunk, tab, consts, state0)
+    return chunk, tab, consts, state0
+
+
+def k1_inputs(C: int, n_blocks: int, device, sig=SIG, trk=TRK):
+    """K1's tensor and static arguments on k1_track_inputs."""
+    args = tfused.kernel_inputs(*k1_track_inputs(C, n_blocks, device, sig,
+                                                 trk))
     return args, tfused.kernel_kwargs(sig, trk, n_blocks=n_blocks)
 
 
@@ -678,14 +738,17 @@ def gps_config(pool, sig=SIG) -> ReceiverConfig:
         n_channels=GPS_CHANNELS)
 
 
-def gps_main_path(device) -> tuple:
-    """The bench_manager configuration through the port's manager.
-    Returns (results, the signal's sm2 bytes)."""
+def gps_main_path(device, src=None, mesh=None) -> tuple:
+    """The bench_manager configuration through the port's manager (on a
+    mesh when one is given, over `src` when one is given). Returns
+    (results, the sm2 source on the card, run_snapshot of the
+    manager)."""
     seconds, epoch_ms, sync_every = GPS_SECONDS, GPS_EPOCH_MS, GPS_SYNC
     n_ms = seconds * 1000
     sats, prns, recv, absent = gps_sky()
     t0 = time.perf_counter()
-    src = device_signal(SIG, sats, n_ms + 800, 3, device)
+    if src is None:
+        src = device_signal(SIG, sats, n_ms + 800, 3, device)
     setup_s = time.perf_counter() - t0
     pool = prns + absent
     cfg = gps_config(pool)
@@ -699,7 +762,7 @@ def gps_main_path(device) -> tuple:
         src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
         reacq_period_ms=1000, sync_every=sync_every, navigator=navr,
         prn_pool=pool, prefetch=True, readback="compact",
-        history_window_ms=36_000, engine="fused")
+        history_window_ms=36_000, engine="fused", mesh=mesh)
     mgr.run(warm_ms)
     sup_ms = sync_every * epoch_ms
     meas_ms = ((n_ms - warm_ms - epoch_ms) // (2 * sup_ms)) * 2 * sup_ms
@@ -729,7 +792,55 @@ def gps_main_path(device) -> tuple:
         _, lat, lon, h, nsv = coll.pvt[-1]
         res["last_fix_err_m"] = position_error_m(lat, lon, h, recv)
         res["n_sv_last"] = int(nsv)
-    return res, src.packed
+    snap = run_snapshot(mgr)
+    if mesh is not None:
+        st = mgr._state
+        res["state_parts"] = [
+            {"device": str(p.corr.sample_pos.device),
+             "rows": int(p.corr.sample_pos.shape[0])} for p in st.parts] \
+            if isinstance(st, Sharded) else None
+    return res, src, snap
+
+
+#: The prompt-stream lanes phases 29 and 35 hold bit-identical (with the
+#: data component's i_p2 and q_p2 where the family has one).
+STREAM_LANES = ("i_p", "q_p", "carr_doppler", "abs_sample", "carr_cycles")
+
+
+def run_snapshot(mgr) -> dict:
+    """A manager run's records and the prompt streams of every PRN with
+    history, as host arrays."""
+    recs = [(r.epoch_ms, r.prn.copy(), r.cn0_dbhz.copy(),
+             r.pll_lock.copy(), r.doppler_hz.copy()) for r in mgr.records]
+    streams = {}
+    for prn, h in mgr.history.items():
+        if h["i_p"]:
+            s = mgr.prompt_stream(prn)
+            streams[prn] = {k: s[k] for k in STREAM_LANES + ("i_p2", "q_p2")
+                            if k in s}
+    return {"records": recs, "streams": streams}
+
+
+def snapshot_mismatches(a: dict, b: dict) -> list:
+    """What differs, bit for bit, between two run_snapshot()s."""
+    bad = []
+    if len(a["records"]) != len(b["records"]):
+        bad.append(f"records {len(a['records'])} vs {len(b['records'])}")
+    for ra, rb in zip(a["records"], b["records"]):
+        if ra[0] != rb[0] or not all(np.array_equal(x, y)
+                                     for x, y in zip(ra[1:], rb[1:])):
+            bad.append(f"record at {ra[0]} ms")
+            break
+    if sorted(a["streams"]) != sorted(b["streams"]):
+        bad.append(f"stream PRNs {sorted(a['streams'])} vs "
+                   f"{sorted(b['streams'])}")
+    for prn in set(a["streams"]) & set(b["streams"]):
+        sa, sb = a["streams"][prn], b["streams"][prn]
+        for k in sorted(set(sa) | set(sb)):
+            if k not in sa or k not in sb or not np.array_equal(sa[k],
+                                                                sb[k]):
+                bad.append(f"PRN {prn} {k}")
+    return bad
 
 
 def k2_inputs(C: int, n_blocks: int, device):
@@ -802,14 +913,18 @@ def k2_times(C: int, n_blocks: int, device) -> tuple:
                         tk.track_chunk_boc_fused_ref)
 
 
-def galileo_main_path(device) -> dict:
-    """The live Galileo E1B receiver through the port's manager."""
+def galileo_main_path(device, src=None, mesh=None) -> tuple:
+    """The live Galileo E1B receiver through the port's manager (on a
+    mesh when one is given, over `src` when one is given). Returns
+    (results, the sm2 source on the card, run_snapshot of the
+    manager)."""
     seconds, n_channels, epoch_ms, sync_every = 24, 12, 500, 4
     n_ms = seconds * 1000
     sats, prns, recv, _ = galileo_constellation(
         GSIG, 8, duration_s=seconds + 1.0, cn0_dbhz=48.0)
     t0 = time.perf_counter()
-    src = device_signal(GSIG, sats, n_ms + 800, 23, device)
+    if src is None:
+        src = device_signal(GSIG, sats, n_ms + 800, 23, device)
     setup_s = time.perf_counter() - t0
     absent = [p for p in range(1, galileo_e1.NUM_PRN + 1)
               if p not in prns][:2]
@@ -831,7 +946,8 @@ def galileo_main_path(device) -> dict:
     mgr = ChannelManager(
         src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
         reacq_period_ms=2000, sync_every=sync_every, navigator=navr,
-        prn_pool=pool, prefetch=True, readback="compact", engine="auto")
+        prn_pool=pool, prefetch=True, readback="compact", engine="auto",
+        mesh=mesh)
     mgr.run(warm_ms)
     meas_ms = n_ms - warm_ms - 2 * epoch_ms
     coll.enabled = True
@@ -845,7 +961,7 @@ def galileo_main_path(device) -> dict:
     err = [float(np.linalg.norm([s["x"] - recv[0], s["y"] - recv[1],
                                  s["z"] - recv[2]]))
            for s in navr.solutions]
-    return {
+    res = {
         "realtime_factor_overall": meas_ms / 1000.0 / (t1 - t0),
         "measured_ms": meas_ms,
         "wall_s": t1 - t0,
@@ -861,6 +977,7 @@ def galileo_main_path(device) -> dict:
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
+    return res, src, run_snapshot(mgr)
 
 
 def l3_sky(prns, dopplers, rates, code_phases, n_ms: int, seed: int,
@@ -995,11 +1112,13 @@ def l3_bits_recovered(h: dict, bits: np.ndarray) -> tuple:
     return sync, False
 
 
-def l3_main_path(device, k3_ms: float) -> dict:
+def l3_main_path(device, k3_ms: float, src=None, mesh=None) -> tuple:
     """glonass_l3oc_live_12ch through the port's manager: 8 satellites in
     the sky, 2 absent ones in the pool, 9 s of signal made in 1 s pieces
     (2 s warm-up, 6 s measured). k3_ms: K3's time per launch, for its
-    share of the wall."""
+    share of the wall; on a mesh when one is given, over `src` when one
+    is given. Returns (results, the sm2 source on the card, run_snapshot
+    of the manager)."""
     seconds, n_channels, epoch_ms, sync_every = 9, 12, 500, 2
     n_ms, meas_ms = seconds * 1000, 6000
     prns = [3, 7, 11, 14, 18, 22, 26, 30]
@@ -1011,7 +1130,8 @@ def l3_main_path(device, k3_ms: float) -> dict:
            + rng.uniform(0.0, 1000.0, len(prns)))
     sats, bits = l3_sky(prns, dopp, rates, cps, n_ms + 20, seed=32)
     t0 = time.perf_counter()
-    src = device_signal(LSIG, sats, n_ms, 33, device, piece_ms=1000)
+    if src is None:
+        src = device_signal(LSIG, sats, n_ms, 33, device, piece_ms=1000)
     setup_s = time.perf_counter() - t0
     pool = prns + absent
     cfg = ReceiverConfig(
@@ -1028,7 +1148,8 @@ def l3_main_path(device, k3_ms: float) -> dict:
     mgr = ChannelManager(
         src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
         reacq_period_ms=1000, sync_every=sync_every, navigator=navr,
-        prn_pool=pool, prefetch=True, readback="compact", engine="auto")
+        prn_pool=pool, prefetch=True, readback="compact", engine="auto",
+        mesh=mesh)
     mgr.run(warm_ms)
     k3_warm = tk.LAUNCHES["track_chunk_dual_fused"]
     coll.enabled = True
@@ -1064,7 +1185,7 @@ def l3_main_path(device, k3_ms: float) -> dict:
         sky[prn] = row
     wall = t1 - t0
     k3_meas = launches["track_chunk_dual_fused"] - k3_warm
-    return {
+    res = {
         "realtime_factor_overall": meas_ms / 1000.0 / wall,
         "measured_ms": meas_ms,
         "wall_s": wall,
@@ -1084,6 +1205,7 @@ def l3_main_path(device, k3_ms: float) -> dict:
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
+    return res, src, run_snapshot(mgr)
 
 
 def k1_family_path(device, *, sig, trk, acq, sats, sky, absent, recv,
@@ -1694,17 +1816,24 @@ def resample_apply_check(device, path: str, count: int) -> dict:
 def k1_kernel_us(inputs, reps: int) -> float:
     """K1's mean device time per launch in us from a torch.profiler
     trace of `reps` launches: the kernel's own duration, whatever the
-    host's pace of issuing them."""
-    from torch.profiler import ProfilerActivity, profile
+    host's pace of issuing them. A warm-up step of 20 launches runs with
+    the tracer already on and is not recorded: a trace's first kernels
+    can be lost while the tracer starts (a trace beside the resampler's
+    stream once missed 2 of 200)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     args, kw = inputs
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            tk.track_chunk_fused(*args, **kw)
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "k1.json")
-        prof.export_chrome_trace(path)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)
+                     ) as prof:
+            for n in (20, reps):
+                for _ in range(n):
+                    tk.track_chunk_fused(*args, **kw)
+                torch.cuda.synchronize()
+                prof.step()
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     durs = [float(e["dur"]) for e in events
@@ -2491,19 +2620,24 @@ def pcode_path(device) -> dict:
     return rec
 
 
-def cli_solve_path(device) -> dict:
+def write_solve_file(device, path: str) -> None:
+    """Phase 22's signal as an i8_iq file (phases 28 and 34 read it)."""
+    write_i8_file(SIG, gps_solve_sky()[0], FC_NMS + 50, 21, device, path)
+
+
+def cli_solve_path(device, path: str) -> dict:
     """`python -m gnsstpu_torch solve FILE --fs 2.048e6 --if-freq 0
     --format i8_iq --ms 24000 --channels 8 --log LOG` on phase 22's
-    signal written as an i8_iq file, in a subprocess."""
+    signal written as an i8_iq file (write_solve_file), in a
+    subprocess."""
     from gnsstpu_torch.nav import geodesy
 
-    sats, _, recv = gps_solve_sky()
+    _, _, recv = gps_solve_sky()
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     lat, lon, _ = geodesy.cart2geo(*recv, 5)
     with tempfile.TemporaryDirectory() as tmp:
-        path, log = os.path.join(tmp, "gps.i8"), os.path.join(tmp, "pvt.log")
-        write_i8_file(SIG, sats, FC_NMS + 50, 21, device, path)
+        log = os.path.join(tmp, "pvt.log")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "gnsstpu_torch", "solve", path, "--fs",
@@ -2536,6 +2670,408 @@ def cli_solve_path(device) -> dict:
     if failed:
         raise AssertionError(f"CLI solve checks failed: {failed} {rec}")
     return rec
+
+
+# --- the mesh (phases 29-34) -----------------------------------------------
+
+def checked(rec: dict, checks: dict) -> dict:
+    """rec with its 'checks' (name: passed), for raise_failed."""
+    rec["checks"] = checks
+    return rec
+
+
+def quiet_mesh(axes) -> tuple:
+    """(make_mesh(axes), its RuntimeWarning's text or None): with fewer
+    cards than shards the shards share the cards, and make_mesh says so."""
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        mesh = make_mesh(axes)
+    return mesh, (str(w[0].message) if w else None)
+
+
+def gps_mesh_path(device, src, base: dict, base_snap: dict) -> dict:
+    """Phase 5's configuration and signal through
+    ChannelManager(mesh=make_mesh([("channel", 2)])), held bit-identical
+    to phase 5's unsharded run."""
+    mesh, warned = quiet_mesh([("channel", 2)])
+    res, _, snap = gps_main_path(device, src=src, mesh=mesh)
+    res["mesh"] = repr(mesh)
+    res["mesh_warning"] = warned
+    res["mismatches_vs_phase_5"] = snapshot_mismatches(base_snap, snap)
+    res["records_compared"] = len(snap["records"])
+    res["streams_compared"] = sorted(int(p) for p in snap["streams"])
+    want = [{"device": str(d), "rows": GPS_CHANNELS // 2}
+            for d in mesh.axis_devices("channel")]
+    checks = {
+        "records and prompt streams bit-identical to phase 5":
+            not res["mismatches_vs_phase_5"] and res["records_compared"] > 0,
+        "live_channels_at_end >= 10": res["live_channels_at_end"] >= 10,
+        "ephemerides_decoded >= 8": res["ephemerides_decoded"] >= 8,
+        "pvt_solutions >= 10": res["pvt_solutions"] >= 10,
+        "last_fix_err_m < 100": res.get("last_fix_err_m", 1e9) < 100.0,
+        "K1 launched twice per epoch":
+            res["k1_launches"] == 2 * base["k1_launches"] > 0,
+        "state on the mesh": res["state_parts"] == want,
+        "no jax or gnsstpu module loaded": not refused_modules(),
+    }
+    return checked(res, checks)
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """ms per call of fn() (CUDA events, after a warm-up call)."""
+    fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def sharded_k1_path(device, C: int = 48, n_blocks: int = 500,
+                    n_shards: int = 4) -> dict:
+    """K1 at C x n_blocks split n_shards ways over make_mesh([("channel",
+    n_shards)]), each shard launching on its own stream, against one
+    launch at the whole width: outputs and state bit-identical, and ms
+    per step of each (CUDA events)."""
+    chunk, tab, consts, state0 = k1_track_inputs(C, n_blocks, device)
+    single = tfused.make_fused_tracker(SIG, TRK, n_blocks=n_blocks)
+    mesh, warned = quiet_mesh([("channel", n_shards)])
+    st_s, tab_s, consts_s, chunk_s = shard_fused_inputs(
+        state0, tab, consts, chunk, mesh)
+    sharded = make_sharded_fused_tracker(SIG, TRK, mesh=mesh,
+                                         n_blocks=n_blocks)
+    before = tk.LAUNCHES["track_chunk_fused"]
+    s1, o1 = single(chunk, tab, consts, state0)
+    s4, o4 = sharded(chunk_s, tab_s, consts_s, st_s)
+    torch.cuda.synchronize()
+    launches = tk.LAUNCHES["track_chunk_fused"] - before
+    identical = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((o1, s1)), tree_leaves((o4, s4.gather()))))
+    res = {"C": C, "n_blocks": n_blocks, "shards": n_shards,
+           "mesh": repr(mesh), "mesh_warning": warned,
+           "launches_single_and_sharded": launches,
+           "single_launch_ms": cuda_ms(
+               lambda: single(chunk, tab, consts, state0)),
+           "sharded_step_ms": cuda_ms(
+               lambda: sharded(chunk_s, tab_s, consts_s, st_s))}
+    # The launches alone, their inputs packed once: on the shards' own
+    # streams (do their CTAs run together?) and one after another on one.
+    kw = tfused.kernel_kwargs(SIG, TRK, n_blocks=n_blocks)
+    args = [tfused.kernel_inputs(chunk, tab_s.parts[i],
+                                 tuple(c.parts[i] for c in consts_s),
+                                 st_s.parts[i]) for i in range(n_shards)]
+    streams = [torch.cuda.Stream(device=device) for _ in range(n_shards)]
+
+    def on_streams():
+        main = torch.cuda.current_stream(device)
+        for a, st in zip(args, streams):
+            st.wait_stream(main)
+            with torch.cuda.stream(st):
+                tk.track_chunk_fused(*a, **kw)
+        for st in streams:
+            main.wait_stream(st)
+
+    def in_turn():
+        for a in args:
+            tk.track_chunk_fused(*a, **kw)
+
+    res["launches_alone_own_streams_ms"] = cuda_ms(on_streams)
+    res["launches_alone_one_stream_ms"] = cuda_ms(in_turn)
+    # The host's time to enqueue one sharded step (no wait for the card).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sharded(chunk_s, tab_s, consts_s, st_s)
+    res["sharded_step_enqueue_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    checks = {"outputs and state bit-identical to one launch": identical,
+              f"{n_shards} launches beside the single one":
+                  launches == 1 + n_shards}
+    return checked(res, checks)
+
+
+#: Phase 31's search: the main path's two 2 ms windows, 32 PRNs x the
+#: 29 Doppler bins of a 7 kHz band at 250 Hz padded to 32, 2,048 lags.
+SEARCH_ACQ = AcqConfig(doppler_band=7e3, coherent_ms=2, threshold=2.4)
+
+
+def sharded_search_path(device) -> dict:
+    """The cold search on a channel=2 x doppler=2 mesh against the
+    unsharded cube: the same code_phase and doppler_bin, the metric
+    within rtol 1e-5; ms (CUDA events) and peak device memory of each."""
+    spc = SIG.samples_per_code
+    sats = [SatParams(prn=p, doppler_hz=d, code_phase_chips=cp,
+                      cn0_dbhz=46.0)
+            for p, d, cp in ((3, 1250.0, 100.3), (11, -2750.0, 611.0),
+                             (23, 500.0, 877.6))]
+    x = IFSimulator(SIG, sats, noise_sigma=1.0, seed=7,
+                    device=device).generate_tensor(8)
+    blocks = search.stack_windows(x, spc, SEARCH_ACQ)
+    fd = search.code_fd_tensor(SIG, SEARCH_ACQ, device)
+    step = SEARCH_ACQ.doppler_bin_step()
+    d29 = fft_acquire.doppler_grid(0.0, SEARCH_ACQ.doppler_band, step)
+    dopp = torch.as_tensor(np.concatenate(
+        [d29, d29[-1] + step * np.arange(1, 4)]), dtype=torch.float32,
+        device=device)
+    mesh, warned = quiet_mesh([("channel", 2), ("doppler", 2)])
+    shards = shard_acquisition_inputs(blocks, fd, dopp, mesh)
+    res = {"bins": [len(d29), int(dopp.shape[0])], "prns": fd.shape[0],
+           "lags": spc, "mesh": repr(mesh), "mesh_warning": warned}
+    cubes = {}
+    for tag, call in (
+            ("unsharded", lambda: fft_acquire.acquire_cube(
+                blocks, fd, dopp, SIG.fs, spc)),
+            ("sharded", lambda: fft_acquire.acquire_cube(
+                shards, None, None, SIG.fs, spc))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        cubes[tag] = call()
+        torch.cuda.synchronize()
+        res[f"{tag}_peak_mb"] = (torch.cuda.max_memory_allocated(device)
+                                 - base) / 2 ** 20
+        res[f"{tag}_ms"] = cuda_ms(call)
+    m = {tag: fft_acquire.peak_metrics(c, samples_per_code=spc,
+                                       samples_per_chip=2)
+         for tag, c in cubes.items()}
+    a, b = m["sharded"], m["unsharded"]
+    rel = (a["metric"] - b["metric"]).abs() / b["metric"].abs()
+    res["metric_max_rel"] = float(rel.max())
+    res["detected"] = [int(i) + 1 for i in torch.nonzero(
+        b["metric"] > SEARCH_ACQ.threshold).flatten()]
+    checks = {
+        "code_phase equal": torch.equal(a["code_phase"], b["code_phase"]),
+        "doppler_bin equal": torch.equal(a["doppler_bin"],
+                                         b["doppler_bin"]),
+        "metric within rtol 1e-5": res["metric_max_rel"] <= 1e-5,
+        "the sky's PRNs detected": {3, 11, 23} <= set(res["detected"]),
+    }
+    return checked(res, checks)
+
+
+#: Phase 32's weak satellite: 34 dB-Hz, which a 1 ms search misses and
+#: 20 coherent code periods find; its Doppler sits on bin 20 of 41 bins
+#: 25 Hz apart and its code phase on sample 1,024.
+LC_SAT = SatParams(prn=7, doppler_hz=1250.0, code_phase_chips=511.5,
+                   cn0_dbhz=34.0)
+LC_K, LC_PRNS = 20, list(range(1, 33))
+LC_DOPP = 750.0 + 25.0 * np.arange(41)
+
+
+def lc_signal(device) -> np.ndarray:
+    return IFSimulator(SIG, [LC_SAT], noise_sigma=1.0, seed=29,
+                       device=device).generate(LC_K + 2)
+
+
+def lc_cell(cube: torch.Tensor) -> list:
+    """(PRN row, Doppler bin, code phase) of the cube's largest cell."""
+    return [int(v) for v in np.unravel_index(int(torch.argmax(cube)),
+                                             tuple(cube.shape))]
+
+
+def lc_expected() -> list:
+    spc = SIG.samples_per_code
+    return [LC_PRNS.index(LC_SAT.prn), 20,
+            int(round(LC_SAT.code_phase_chips * SIG.fs / SIG.code_freq))
+            % spc]
+
+
+def lc_oracle_err(x: np.ndarray, cube: torch.Tensor) -> float:
+    """Largest |cube - f64 oracle| over the true PRN's row and two others,
+    over the oracle's peak."""
+    rows = [LC_PRNS.index(p) for p in (LC_SAT.prn, 3, 19)]
+    oracle = reference_coherent_power(x, SIG, [LC_PRNS[r] for r in rows],
+                                      LC_DOPP, LC_K)
+    return float(np.max(np.abs(cube[rows].cpu().numpy() - oracle))
+                 / oracle.max())
+
+
+def lc_search(x, mesh, device, k: int = LC_K) -> tuple:
+    """(cube, wall ms, peak device memory MB beyond the allocation before
+    the call) of one long_coherent_acquire."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cube = long_coherent_acquire(x, SIG, LC_PRNS, LC_DOPP, mesh,
+                                 k_periods=k)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return cube, ms, (torch.cuda.max_memory_allocated(device) - base) / 2**20
+
+
+def long_coherent_path(device) -> dict:
+    """K = 20 code periods over time=4 (and time=1, the tail-only halo)
+    on the weak satellite, against the f64 oracle on three PRN rows."""
+    x = lc_signal(device)
+    want = lc_expected()
+    res = {"sat": dataclasses.asdict(LC_SAT), "k_periods": LC_K,
+           "prns": len(LC_PRNS), "bins": len(LC_DOPP), "expected": want}
+    cubes = {}
+    for B in (4, 1):
+        mesh, warned = quiet_mesh([("time", B)])
+        lc_search(x, mesh, device)                 # warm-up (cuFFT plans)
+        cube, ms, mb = lc_search(x, mesh, device)
+        cubes[B] = cube
+        res[f"time={B}"] = {"cell": lc_cell(cube), "ms": ms,
+                            "peak_mb_all_shards_in_turn": mb,
+                            "mesh_warning": warned}
+    one_ms, _, _ = lc_search(x, quiet_mesh([("time", 1)])[0], device, k=1)
+    res["1 ms search cell"] = lc_cell(one_ms)
+    errs = {B: lc_oracle_err(x, c) for B, c in cubes.items()}
+    res["oracle_max_norm_err"] = errs
+    err_b1 = float(((cubes[4] - cubes[1]).abs().max()
+                    / cubes[4].abs().max()).item())
+    res["time=1 vs time=4 max_norm_err"] = err_b1
+    c4 = res["time=4"]["cell"]
+    checks = {
+        "time=4 peak at the true PRN and bin": c4[:2] == want[:2],
+        "time=4 code phase within 2 samples": abs(
+            (c4[2] - want[2] + 1024) % 2048 - 1024) <= 2,
+        "oracle within normalised atol 2e-3": max(errs.values()) <= 2e-3,
+        "time=1 gives the same answer": res["time=1"]["cell"] == c4
+        and err_b1 <= 2e-3,
+        "a 1 ms search misses it": res["1 ms search cell"] != c4,
+    }
+    return checked(res, checks)
+
+
+def timeblock_worker(coord: str, n: int, rank: int) -> int:
+    """One rank of phase 33: phase 32's search over a time=n mesh of n
+    processes (NCCL), one card each; prints its result as one line."""
+    import torch.distributed as dist
+
+    mesh = make_distributed_mesh([("time", n)], coordinator=coord,
+                                 num_processes=n, process_id=rank)
+    dev = mesh.first_device
+    x = lc_signal(dev)
+    lc_search(x, mesh, dev)
+    cube, ms, mb = lc_search(x, mesh, dev)
+    print("TIMEBLOCK " + json.dumps({
+        "rank": rank, "world": dist.get_world_size(),
+        "backend": dist.get_backend(), "device": str(dev),
+        "collectives_through_the_group": mesh.distributed,
+        "cell": lc_cell(cube), "oracle_max_norm_err": lc_oracle_err(x, cube),
+        "ms": ms, "peak_mb": mb}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def distributed_path(cell: list) -> dict:
+    """Phase 32's search in a torch.distributed world over NCCL on a
+    localhost TCP store: two processes when there are two cards (time=2),
+    else one (time=1, NCCL refuses two ranks on one card)."""
+    n = 2 if torch.cuda.device_count() >= 2 else 1
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--timeblock-worker",
+         coord, str(n), str(r)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = [json.loads(ln.split("TIMEBLOCK ", 1)[1])
+               for out, _ in outs for ln in out.splitlines()
+               if ln.startswith("TIMEBLOCK ")]
+    res = {"processes": n, "rcs": [p.returncode for p in procs],
+           "results": results,
+           "stderr_tail": [err[-300:] for (_, err), p in zip(outs, procs)
+                           if p.returncode]}
+    checks = {
+        "every rank exits 0": all(p.returncode == 0 for p in procs),
+        "every rank reports": len(results) == n,
+        "NCCL world of the processes": all(
+            r["backend"] == "nccl" and r["world"] == n for r in results),
+        "halo all-gather and all_reduce through NCCL": all(
+            r["collectives_through_the_group"] for r in results),
+        "peak in phase 32's cell": all(r["cell"] == cell for r in results),
+        "oracle within normalised atol 2e-3": all(
+            r["oracle_max_norm_err"] <= 2e-3 for r in results),
+    }
+    return checked(res, checks)
+
+
+def cli_mesh_path(device, path: str) -> dict:
+    """`python -m gnsstpu_torch track FILE ... --mesh channel=2` on phase
+    28's file against the same command without --mesh: both exit 0 and
+    their telemetry records (all but the wall-clock stamps and stage
+    timings) are equal."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res, recs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, extra in (("unsharded", []),
+                           ("mesh", ["--mesh", "channel=2"])):
+            log = os.path.join(tmp, f"{tag}.jsonl")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "gnsstpu_torch", "track", path,
+                 "--fs", "2.048e6", "--if-freq", "0", "--format", "i8_iq",
+                 "--ms", "6000", "--channels", "8", "--epoch-ms", "500",
+                 "--sync-every", "4", "--prefetch", "--readback",
+                 "compact", "--device", device.type, "--log", log, *extra],
+                cwd=repo, env=env, capture_output=True, text=True,
+                timeout=600)
+            res[tag] = {"rc": proc.returncode,
+                        "wall_s": time.perf_counter() - t0,
+                        "stdout_tail": proc.stdout.strip()[-120:],
+                        "stderr_tail": (proc.stderr[-300:]
+                                        if proc.returncode else "")}
+            recs[tag] = []
+            if os.path.exists(log):
+                with open(log) as f:
+                    recs[tag] = [
+                        {k: v for k, v in json.loads(ln).items()
+                         if k != "t"}
+                        for ln in f if ln.strip()]
+            recs[tag] = [r for r in recs[tag]
+                         if r.get("type") != "task_health"]
+    res["records"] = len(recs["mesh"])
+    checks = {
+        "both exit 0": all(r["rc"] == 0 for r in res.values()
+                           if isinstance(r, dict)),
+        "telemetry records equal": recs["mesh"] == recs["unsharded"]
+        and len(recs["mesh"]) > 0,
+    }
+    return checked(res, checks)
+
+
+def family_mesh_path(name: str, run, base: dict, base_snap: dict,
+                     kernel: str) -> dict:
+    """A K2 or K3 family's main path (run(src=..., mesh=...), phase 9's or
+    13's) through ChannelManager(mesh=make_mesh([("channel", 2)])), held
+    bit-identical to its unsharded run: the kernel launched once per
+    shard per epoch, the state split over the mesh."""
+    mesh, warned = quiet_mesh([("channel", 2)])
+    res, _, snap = run(mesh=mesh)
+    res["mesh"] = repr(mesh)
+    res["mesh_warning"] = warned
+    res["mismatches_unsharded"] = snapshot_mismatches(base_snap, snap)
+    res["records_compared"] = len(snap["records"])
+    res["streams_compared"] = sorted(int(p) for p in snap["streams"])
+    checks = {
+        f"{name}: records and prompt streams bit-identical":
+            not res["mismatches_unsharded"] and res["records_compared"] > 0
+            and len(res["streams_compared"]) > 0,
+        f"{name}: {kernel} launched twice the unsharded count":
+            res[f"{kernel}_launches"] == 2 * base[f"{kernel}_launches"] > 0,
+        f"{name}: realtime_factor_overall >= 1":
+            res["realtime_factor_overall"] >= 1.0,
+        "no jax or gnsstpu module loaded": not refused_modules(),
+    }
+    return checked(res, checks)
 
 
 def main() -> int:
@@ -2600,7 +3136,8 @@ def main() -> int:
           flush=True)
 
     # 5. GPS main path.
-    res, gps_wire = gps_main_path(dev)
+    res, gps_src, gps_snap = gps_main_path(dev)
+    gps_wire = gps_src.packed
     print(f"[5 main path] {json.dumps(res)}", flush=True)
     checks = {
         "live_channels_at_end >= 10": res["live_channels_at_end"] >= 10,
@@ -2650,7 +3187,7 @@ def main() -> int:
           f"({k2_bound_by})", flush=True)
 
     # 9. Galileo main path.
-    gres = galileo_main_path(dev)
+    gres, gal_src, gal_snap = galileo_main_path(dev)
     print(f"[9 galileo main path] {json.dumps(gres)}", flush=True)
     sky = gres["sky_prns"]
     refused = refused_modules()
@@ -2710,7 +3247,7 @@ def main() -> int:
           flush=True)
 
     # 13. GLONASS L3OC main path.
-    lres = l3_main_path(dev, k3_ms)
+    lres, l3_src, l3_snap = l3_main_path(dev, k3_ms)
     print(f"[13 glonass l3oc main path] {json.dumps(lres)}", flush=True)
     refused = refused_modules()
     rows = lres["sky"].values()
@@ -2861,12 +3398,72 @@ def main() -> int:
     pres = pcode_path(dev)
     print(f"[27 pcode] {json.dumps(pres)}", flush=True)
 
-    cres28 = cli_solve_path(dev)
+    solve_dir = tempfile.TemporaryDirectory()
+    solve_file = os.path.join(solve_dir.name, "gps.i8")
+    write_solve_file(dev, solve_file)
+    cres28 = cli_solve_path(dev, solve_file)
     print(f"[28 CLI solve] {json.dumps(cres28)}", flush=True)
+
+    # 29. The GPS main path through a 2-way channel mesh.
+    mres = gps_mesh_path(dev, gps_src, res, gps_snap)
+    del gps_src, gps_snap
+    print(f"[29 gps_l1_live_12ch_mesh2] {json.dumps(mres)} | phase 5 "
+          f"beside it: realtime factor "
+          f"{res['realtime_factor_overall']:.2f}, stage walls "
+          f"{json.dumps(res['stage_wall_s'])}, K1 launches "
+          f"{res['k1_launches']}", flush=True)
+    raise_failed("gps_l1_live_12ch_mesh2", mres)
+
+    # 30. Sharded K1 alone: C=48 x 500 over 4 shards on their streams.
+    kres = sharded_k1_path(dev)
+    print(f"[30 sharded K1] {json.dumps(kres)}", flush=True)
+    raise_failed("sharded K1", kres)
+
+    # 31. The cold search on a channel=2 x doppler=2 mesh.
+    qres = sharded_search_path(dev)
+    print(f"[31 sharded search] {json.dumps(qres)}", flush=True)
+    raise_failed("sharded search", qres)
+
+    # 32. Time-block long coherent acquisition of a weak satellite.
+    lcres = long_coherent_path(dev)
+    print(f"[32 long coherent] {json.dumps(lcres)}", flush=True)
+    raise_failed("long coherent", lcres)
+
+    # 33. The same search across torch.distributed processes (NCCL).
+    dres33 = distributed_path(lcres["time=4"]["cell"])
+    print(f"[33 distributed] {json.dumps(dres33)}", flush=True)
+    raise_failed("distributed", dres33)
+
+    # 34. track --mesh from the CLI against the same run without it.
+    cres34 = cli_mesh_path(dev, solve_file)
+    solve_dir.cleanup()
+    print(f"[34 CLI track --mesh] {json.dumps(cres34)}", flush=True)
+    raise_failed("CLI track --mesh", cres34)
+
+    # 35. Galileo E1B and GLONASS L3OC through a 2-way channel mesh.
+    fres = {}
+    for tag, run, base, snap, kernel in (
+            ("galileo_e1b_live_12ch_mesh2",
+             lambda mesh: galileo_main_path(dev, src=gal_src, mesh=mesh),
+             gres, gal_snap, "k2"),
+            ("glonass_l3oc_live_12ch_mesh2",
+             lambda mesh: l3_main_path(dev, k3_ms, src=l3_src, mesh=mesh),
+             lres, l3_snap, "k3")):
+        fres[tag] = family_mesh_path(tag, run, base, snap, kernel)
+        print(f"[35 {tag}] {json.dumps(fres[tag])} | unsharded beside it: "
+              f"realtime factor {base['realtime_factor_overall']:.2f}, "
+              f"stage walls {json.dumps(base['stage_wall_s'])}, "
+              f"{kernel.upper()} launches {base[kernel + '_launches']}",
+              flush=True)
+        raise_failed(tag, fres[tag])
+    del gal_src, gal_snap, l3_src, l3_snap
+    k2_mesh = fres["galileo_e1b_live_12ch_mesh2"]["k2_launches"]
+    k3_mesh = fres["glonass_l3oc_live_12ch_mesh2"]["k3_launches"]
 
     # 18. K1's launches on each path in this process (the CLI's run in
     # its own process, uncounted).
     k1_paths = {"gps_l1_live_12ch": res["k1_launches"],
+                "gps_l1_live_12ch_mesh2": mres["k1_launches"],
                 "beidou_b1i_live_12ch": bres["k1_launches"],
                 "glonass_l1of_live_12ch": ores["k1_launches"],
                 "gps_l1_tcp_live_12ch": tres["k1_launches"],
@@ -2876,9 +3473,11 @@ def main() -> int:
                 "glonass_l1of_solve_6ch": osres["launches"]}
     print(f"[18 K1 launches by path] {json.dumps(k1_paths)} | K2: "
           f"galileo_e1b_live_12ch {gres['k2_launches']}, "
-          f"galileo_e1b_solve_5ch {gsres['launches']} | K3: "
+          f"galileo_e1b_solve_5ch {gsres['launches']}, "
+          f"galileo_e1b_live_12ch_mesh2 {k2_mesh} | K3: "
           f"glonass_l3oc_live_12ch {lres['k3_launches']}, "
-          f"glonass_l3oc_track_dual_8ch {dres['launches']}", flush=True)
+          f"glonass_l3oc_track_dual_8ch {dres['launches']}, "
+          f"glonass_l3oc_live_12ch_mesh2 {k3_mesh}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "track_chunk_fused", "route": "cuda", "source": K1_SOURCE,
@@ -2888,13 +3487,13 @@ def main() -> int:
          "bound_by": k1_bound_by, "library_ms": None},
         {"name": "track_chunk_boc_fused", "route": "cuda",
          "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": gres["k2_launches"] + gsres["launches"],
+         "launches": gres["k2_launches"] + gsres["launches"] + k2_mesh,
          "max_abs_err": g125["acc_abs"],
          "ms": k2_ms, "plain_ms": k2p_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": None},
         {"name": "track_chunk_dual_fused", "route": "cuda",
          "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": lres["k3_launches"] + dres["launches"],
+         "launches": lres["k3_launches"] + dres["launches"] + k3_mesh,
          "max_abs_err": l500["acc_abs"],
          "ms": k3_ms, "plain_ms": k3p_ms, "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": None},
@@ -2907,4 +3506,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--timeblock-worker"]:
+        sys.exit(timeblock_worker(sys.argv[2], int(sys.argv[3]),
+                                  int(sys.argv[4])))
     sys.exit(main())

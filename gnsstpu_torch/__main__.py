@@ -13,7 +13,9 @@ Mirrors `python -m gnsstpu` (gnsstpu/cli.py) on a CUDA device (or
             (--navigate), a JSONL telemetry log (--log), a station server
             that fans the telemetry out and takes commands over TCP
             (--station-port), a torch.profiler trace (--profile) and a
-            checkpoint of the channel bank (--checkpoint / --resume)
+            checkpoint of the channel bank (--checkpoint / --resume),
+            sharded over a device mesh (--mesh channel=N: the family's
+            kernel once per shard, on the --device given)
   solve     the offline chain to a position fix over an IF file
             (runtime.receiver.run_receiver: acquisition, the chunked
             tracker, nav decode, PVT), optionally its PVT records as a
@@ -23,18 +25,18 @@ Mirrors `python -m gnsstpu` (gnsstpu/cli.py) on a CUDA device (or
   analyze   render the analysis panels of a telemetry log (viz; needs
             matplotlib, which only this command imports)
 
-Not ported yet: a device mesh (track --mesh raises NotImplementedError;
-ROADMAP queue 1 item 8, parallel/) and `bench` (the reference's runs the
-TPU round's bench.py; the port's waits for the H100 benchmark, ROADMAP
-queue 1 item 10). A live stream's history and FIFO hold two of
-the manager's chunks (at least the reference's 1,024 blocks), so no read
-of a superepoch falls off the ring.
+Not ported yet: `bench` (the reference's runs the TPU round's bench.py;
+the port's waits for the H100 benchmark, ROADMAP queue 1 item 10). A
+live stream's history and FIFO hold two of the manager's chunks (at
+least the reference's 1,024 blocks), so no read of a superepoch falls
+off the ring.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 
@@ -198,9 +200,6 @@ def cmd_track(args) -> int:
     from gnsstpu_torch.runtime.manager import ChannelManager
     from gnsstpu_torch.runtime.telemetry import Telemetry
 
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh is not ported yet: ROADMAP queue 1, 'parallel/'")
     sig = _sig_config(args)
     cfg = ReceiverConfig(signal=sig, acq=_acq_config(args),
                          track=TrackConfig(dll_bw=args.dll_bw),
@@ -247,13 +246,25 @@ def cmd_track(args) -> int:
                     seed_pos, seed_t = vals[:3], vals[3]
                 navr.load_assist(args.assist, seed_pos=seed_pos,
                                  seed_t=seed_t)
+        mesh = None
+        if args.mesh:
+            # '--mesh channel=4' (or 'channel=2,doppler=2'): the manager
+            # splits the slot bank and tracking state over the channel
+            # axis, on the cards of --device (or CPU devices).
+            from gnsstpu_torch.parallel import make_mesh
+            axes = [(kv.split("=")[0], int(kv.split("=")[1]))
+                    for kv in args.mesh.split(",")]
+            n = math.prod(size for _, size in axes)
+            mesh = make_mesh(axes, devices=None if args.device == "cuda"
+                             else [args.device] * n)
         mgr = ChannelManager(src, cfg, device=args.device, telemetry=tlm,
                              epoch_ms=args.epoch_ms, commands=bus,
                              engine=args.engine, navigator=navr,
                              sync_every=args.sync_every,
                              prefetch=args.prefetch,
                              readback=args.readback,
-                             history_window_ms=args.history_window_ms)
+                             history_window_ms=args.history_window_ms,
+                             mesh=mesh)
         if args.resume:
             mgr.restore_checkpoint(args.resume)
         if args.profile:
@@ -520,7 +531,10 @@ def main(argv=None) -> int:
                         "this TCP port (monitor remotely with `monitor "
                         "tcp://HOST:PORT --follow`); 0 = OS-assigned")
     p.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N]",
-                   help="not ported yet (raises)")
+                   help="run the receiver sharded over a device mesh, "
+                        "e.g. channel=2: cuda:0..N-1 with --device cuda "
+                        "(fewer cards are shared, with a warning), N "
+                        "copies of --device otherwise")
     p.set_defaults(fn=cmd_track)
 
     p = sub.add_parser("solve", help="full chain to a position fix")

@@ -14,7 +14,7 @@ imports jax.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,8 +62,8 @@ def code_fd_table(signal: str, fs: float, code_freq: float,
 _CHUNK_BYTES = 512 << 20
 
 
-def acquire_cube(blocks_iq: torch.Tensor, code_fd: torch.Tensor,
-                 doppler_hz: torch.Tensor, fs: float,
+def acquire_cube(blocks_iq, code_fd: Optional[torch.Tensor],
+                 doppler_hz: Optional[torch.Tensor], fs: float,
                  samples_per_code: int, *, combine: str = "max"
                  ) -> torch.Tensor:
     """Correlation power cube over (PRN, Doppler, code phase).
@@ -81,8 +81,15 @@ def acquire_cube(blocks_iq: torch.Tensor, code_fd: torch.Tensor,
     inverse transform 418 MB each, and the search takes 1,871.9 MB beyond
     what was allocated before it (chip_smoke.py's phase 16 on an NVIDIA
     H100 80GB HBM3 at 700 W).
+
+    Sharded: blocks_iq is the AcqShards bundle of
+    parallel.shard_acquisition_inputs (code_fd and doppler_hz None). Each
+    cell computes its PRN x Doppler sub-cube on its device and the cube
+    is assembled on the mesh's first device.
     Returns f32 [P, D, samples_per_code].
     """
+    if code_fd is None:
+        return _sharded_cube(blocks_iq, fs, samples_per_code, combine)
     B, Lw, _ = blocks_iq.shape
     P, npad = code_fd.shape
     dev = blocks_iq.device
@@ -102,6 +109,24 @@ def acquire_cube(blocks_iq: torch.Tensor, code_fd: torch.Tensor,
         power = corr.real * corr.real + corr.imag * corr.imag  # [B,D,c,S]
         parts.append(power.sum(0) if combine == "sum" else power.amax(0))
     return torch.cat(parts, dim=1).permute(1, 0, 2).contiguous()  # [P,D,S]
+
+
+def _sharded_cube(shards, fs: float, samples_per_code: int,
+                  combine: str) -> torch.Tensor:
+    """acquire_cube over an AcqShards bundle: [P, D, S] on the mesh's
+    first device."""
+    first = shards.mesh.first_device
+    n_p, n_d = shards.shape
+    rows = []
+    for i in range(n_p):
+        cols = []
+        for j in range(n_d):
+            _, blocks, code_fd, dopp = shards.cells[(i, j)]
+            cols.append(acquire_cube(blocks, code_fd, dopp, fs,
+                                     samples_per_code, combine=combine
+                                     ).to(first))
+        rows.append(torch.cat(cols, dim=1))
+    return torch.cat(rows, dim=0)
 
 
 def peak_metrics(cube: torch.Tensor, *, samples_per_code: int,

@@ -361,17 +361,21 @@ def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
                 spacing=spacing, span_chips=span_chips,
                 base_code_step=base_code_step, fs=fs, coefs=coefs)
     built = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = built.lib.track_chunk_fused_cuda(
-        chunk.data_ptr(), chunk.shape[0], tab.data_ptr(), pos0.data_ptr(),
-        finit.data_ptr(), cinit.data_ptr(), carrbase.data_ptr(),
-        out.data_ptr(), ffin.data_ptr(), pos.data_ptr(), cph.data_ptr(),
-        None if stamps is None else stamps.data_ptr(),
-        C, n_blocks, R, blkp, code_length,
-        k["base_code_step"], k["inv_fs"], k["nco_scale"], k["ph"],
-        *k["row_off"], k["ang_scale"], k["inv_pi"], k["inv_2pi"],
-        k["k1"], k["k2"], k["k3"], k["c_dll_p"], k["c_dll_i"],
-        int(_fll_atan(fll_disc)), stream)
+    # The C entry sets the kernel's attributes on the current device and
+    # launches on the stream given: both must be the tensors' card.
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = built.lib.track_chunk_fused_cuda(
+            chunk.data_ptr(), chunk.shape[0], tab.data_ptr(),
+            pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
+            carrbase.data_ptr(), out.data_ptr(), ffin.data_ptr(),
+            pos.data_ptr(), cph.data_ptr(),
+            None if stamps is None else stamps.data_ptr(),
+            C, n_blocks, R, blkp, code_length,
+            k["base_code_step"], k["inv_fs"], k["nco_scale"], k["ph"],
+            *k["row_off"], k["ang_scale"], k["inv_pi"], k["inv_2pi"],
+            k["k1"], k["k2"], k["k3"], k["c_dll_p"], k["c_dll_i"],
+            int(_fll_atan(fll_disc)), stream)
     if rc != 0:
         msg = built.lib.track_fused_error_string(rc).decode()
         raise RuntimeError(f"track_chunk_fused launch failed: {msg} ({rc})")
@@ -689,13 +693,15 @@ def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
         *(k[name] for name in BOC_CONSTS))
     N, _ = cluster_split(C, blkp, _sm_count(dev))
     built = _boc_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = built.lib.track_chunk_boc_fused_cuda(
-        chunk.data_ptr(), chunk.shape[0], ctab.data_ptr(), stab.data_ptr(),
-        pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
-        carrbase.data_ptr(), out.data_ptr(), ffin.data_ptr(),
-        pos.data_ptr(), cph.data_ptr(), C, n_blocks, Rc, Rs, blkp, N,
-        ctypes.cast(consts, ctypes.c_void_p), len(BOC_CONSTS), stream)
+    with torch.cuda.device(dev):         # as in _launch_fused
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = built.lib.track_chunk_boc_fused_cuda(
+            chunk.data_ptr(), chunk.shape[0], ctab.data_ptr(),
+            stab.data_ptr(), pos0.data_ptr(), finit.data_ptr(),
+            cinit.data_ptr(), carrbase.data_ptr(), out.data_ptr(),
+            ffin.data_ptr(), pos.data_ptr(), cph.data_ptr(), C, n_blocks,
+            Rc, Rs, blkp, N, ctypes.cast(consts, ctypes.c_void_p),
+            len(BOC_CONSTS), stream)
     if rc != 0:
         msg = built.lib.track_boc_fused_error_string(rc).decode()
         raise RuntimeError(
@@ -869,13 +875,15 @@ def track_chunk_dual_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
     _check_aligned16("tab", tab)
     N, _ = cluster_split(C, blkp, _sm_count(dev))
     built = _dual_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = built.lib.track_chunk_dual_fused_cuda(
-        chunk.data_ptr(), chunk.shape[0], tab.data_ptr(), pos0.data_ptr(),
-        finit.data_ptr(), cinit.data_ptr(), carrbase.data_ptr(),
-        out.data_ptr(), ffin.data_ptr(), pos.data_ptr(), cph.data_ptr(),
-        C, n_blocks, R, blkp, N, ctypes.cast(consts, ctypes.c_void_p),
-        len(DUAL_CONSTS), stream)
+    with torch.cuda.device(dev):         # as in _launch_fused
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = built.lib.track_chunk_dual_fused_cuda(
+            chunk.data_ptr(), chunk.shape[0], tab.data_ptr(),
+            pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
+            carrbase.data_ptr(), out.data_ptr(), ffin.data_ptr(),
+            pos.data_ptr(), cph.data_ptr(), C, n_blocks, R, blkp, N,
+            ctypes.cast(consts, ctypes.c_void_p), len(DUAL_CONSTS),
+            stream)
     if rc != 0:
         msg = built.lib.track_dual_fused_error_string(rc).decode()
         raise RuntimeError(

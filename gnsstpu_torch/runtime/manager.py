@@ -1,6 +1,6 @@
 """Channel manager: acquisition scheduling, lock supervision, reacquisition
 (port of gnsstpu/runtime/manager.py for every signal family, on one
-device).
+device or sharded over a device mesh).
 
 The device tracks a fixed [C]-slot channel bank; the host supervises at
 epoch boundaries: it reads back prompt statistics, assesses lock, swaps
@@ -33,8 +33,13 @@ cube on the device across consecutive chunks (the weak tier). The live
 channel bank saves to and restores from a checkpoint file (the reference's
 npz + JSON format) for a warm restart without reacquisition.
 
-Not ported yet: a device mesh (raises NotImplementedError naming its
-ROADMAP item).
+With a mesh (parallel.make_mesh), the slot bank's channel rows and the
+tracking state are split over mesh["channel"]: slot i lives on shard
+i // (C / N), each superepoch epoch runs the engine's step on every shard
+(K1 once per shard), and the per-block observables are assembled along C
+on the mesh's first device, where the lock summary, the readback, the
+on-chunk search and the weak tier run as without a mesh. Records and
+prompt streams are bit-identical to the unsharded manager's.
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ from gnsstpu_torch.acquisition.search import (
 from gnsstpu_torch.device import U32_MASK, resolve_device
 from gnsstpu_torch.ops import fft_acquire
 from gnsstpu_torch.ops import unpack as up
+from gnsstpu_torch.parallel.mesh import (Sharded, replicate, shard_rows,
+                                         to_device, tree_map)
 from gnsstpu_torch.tracking import lock as tlock
 from gnsstpu_torch.tracking.engines import make_engine
 
@@ -149,13 +156,12 @@ class _Chunk:
     t_up: float
 
 
-def _map_state(fn, *trees):
-    """Apply fn leafwise over (nested) NamedTuples of tensors."""
-    head = trees[0]
-    if isinstance(head, tuple) and hasattr(head, "_fields"):
-        return type(head)(*(_map_state(fn, *parts)
-                            for parts in zip(*trees)))
-    return fn(*trees)
+def _rows_map(state, fn):
+    """fn(part, rows) on every shard of a Sharded state (rows: the slot
+    indices the part holds), or fn(state, slice(None)) on a whole one."""
+    if isinstance(state, Sharded):
+        return state.map(fn)
+    return fn(state, slice(None))
 
 
 def _drift_margin(sig: SignalConfig, epoch_ms: int, sync_every: int,
@@ -180,6 +186,10 @@ class ChannelManager:
       source.wire_format when the source provides read_packed().
     engine: 'auto' (= 'fused': kernel K1, K2 for Galileo E1B, K3 for
       GLONASS L3OC), 'fused', 'gather', 'table' (the exact scan engines).
+    mesh: a parallel.mesh.Mesh of this process's devices (its first
+      device's type must be `device`'s): the slot bank and tracking state
+      split over mesh["channel"], whose size must divide n_channels; the
+      engine's kernel (K1, K2 or K3) launches once per shard.
     """
 
     def __init__(self, source, cfg: ReceiverConfig, *, device="cuda",
@@ -195,11 +205,24 @@ class ChannelManager:
                  spread_budget_s: float = 900.0,
                  prefetch: bool = False, readback: str = "f32",
                  history_window_ms: Optional[int] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (multi-GPU channel sharding) is not ported "
-                "yet: ROADMAP queue 1, 'parallel/'")
         self.device = resolve_device(device)
+        C = cfg.n_channels
+        self.mesh = mesh
+        if mesh is not None:
+            n = mesh.shape.get("channel")
+            if n is None:
+                raise ValueError("mesh has no axis 'channel'")
+            if C % n:
+                raise ValueError(
+                    f"n_channels {C} not divisible by mesh axis "
+                    f"'channel' size {n}")
+            if mesh.distributed:
+                raise ValueError("the manager takes a mesh of make_mesh, "
+                                 "not of make_distributed_mesh")
+            if mesh.first_device.type != self.device.type:
+                raise ValueError(f"mesh on {mesh.first_device}, device "
+                                 f"{self.device}")
+            self.device = mesh.first_device
         self.source = source
         self.cfg = cfg
         self.sig = cfg.signal
@@ -236,10 +259,9 @@ class ChannelManager:
                     if hasattr(source, "read_packed") else None)
         self.wire = wire                       # None = plain array reads
 
-        C = cfg.n_channels
         self.slots = [Slot() for _ in range(C)]
         spc = self.sig.samples_per_code
-        self.eng = make_engine(cfg, engine)
+        self.eng = make_engine(cfg, engine, mesh=mesh)
         self.engine = self.eng.name
         if epoch_ms % self.eng.period_ms:
             raise ValueError(
@@ -247,7 +269,7 @@ class ChannelManager:
                 f"code period {self.eng.period_ms} ms")
         self._bpe = epoch_ms // self.eng.period_ms   # blocks per epoch
         self._bank = self.eng.new_bank(C)
-        self._state = self.eng.init_state(C, self.device)
+        self._state = self._shard(self.eng.init_state(C, self.device))
         self._bank_dev = None
         self._abs_pos = np.zeros(C, np.float64)    # per-slot next sample
         self._cursor = 0                           # epoch base sample
@@ -285,8 +307,8 @@ class ChannelManager:
 
         def step_epoch(win, bank, state):
             state, obs = engine_step(win, bank, state)
-            state = state._replace(corr=state.corr._replace(
-                sample_pos=state.corr.sample_pos - espc))
+            state = _rows_map(state, lambda s, _: s._replace(
+                corr=s.corr._replace(sample_pos=s.corr.sample_pos - espc)))
             return state, obs
 
         self._step_epoch = step_epoch
@@ -311,17 +333,48 @@ class ChannelManager:
             n += (-n) % up.align(wire)
         return n
 
-    # --- device placement ---
+    # --- device placement (one device or a mesh) ---
 
-    def _put_dev(self, x: np.ndarray) -> torch.Tensor:
+    def _put_dev(self, x: np.ndarray, device=None) -> torch.Tensor:
         """Host bank array -> device tensor (uint32 rides int64)."""
-        x = np.asarray(x)
-        if x.dtype == np.uint32:
-            x = x.astype(np.int64)
-        return torch.as_tensor(x, device=self.device)
+        return to_device(x, device or self.device)
+
+    def _shard(self, state):
+        """A whole [C]-leaved state, split over the mesh when there is
+        one."""
+        if self.mesh is None:
+            return state
+        return shard_rows(state, self.mesh)
 
     def _bank_to_device(self) -> dict:
-        return {key: self._put_dev(v) for key, v in self._bank.items()}
+        """The device bank: on a mesh, the engine's channel_keys split
+        over the channel axis and every other buffer on the first
+        device."""
+        return {key: (shard_rows(v, self.mesh)
+                      if self.mesh is not None
+                      and key in self.eng.channel_keys
+                      else self._put_dev(v))
+                for key, v in self._bank.items()}
+
+    def _set_bank_row(self, key: str, i: int) -> None:
+        """Device copy of host bank row i, in the shard that holds it."""
+        dst = self._bank_dev[key]
+        if isinstance(dst, Sharded):
+            j, r = divmod(i, self.cfg.n_channels // len(dst.parts))
+            dst.parts[j][r] = self._put_dev(self._bank[key][i],
+                                            dst.parts[j].device)
+        else:
+            dst[i] = self._put_dev(self._bank[key][i])
+
+    def _epoch_windows(self, chunk: torch.Tensor, k: int) -> list:
+        """The k epoch windows of a superepoch's device chunk; on a mesh,
+        each replicated on every shard device."""
+        espc, n = self._espc, self._win_len
+        if self.mesh is None:
+            return [chunk[j * espc: j * espc + n] for j in range(k)]
+        rep = replicate(chunk, self.mesh)
+        return [rep.map(lambda c, j=j: c[j * espc: j * espc + n])
+                for j in range(k)]
 
     # --- slot control ---
 
@@ -340,19 +393,26 @@ class ChannelManager:
         self.eng.write_slot(self._bank, slot_idx, prn)
         if self._bank_dev is not None:
             for key in self.eng.slot_keys:
-                self._bank_dev[key][slot_idx] = self._put_dev(
-                    self._bank[key][slot_idx])
-        # Reset the slot's state row on the device. Out of place: the
-        # state leaves may share storage (TrackState.init) or be views of
-        # one kernel output, so each leaf is copied before the row write.
+                self._set_bank_row(key, slot_idx)
+        # Reset the slot's state row on the device (in its shard). Out of
+        # place: the state leaves may share storage (TrackState.init) or
+        # be views of one kernel output, so each leaf is copied before the
+        # row write.
         one = self.eng.slot_state(doppler_hz, self.device)
 
-        def set_row(full, row):
-            full = full.clone()
-            full[slot_idx] = row[0].to(full.dtype)
-            return full
+        def set_row(s, rows):
+            lo = rows.start or 0
+            if not lo <= slot_idx < (rows.stop or len(self.slots)):
+                return s
 
-        self._state = _map_state(set_row, self._state, one)
+            def put(full, row):
+                full = full.clone()
+                full[slot_idx - lo] = row[0].to(full.device, full.dtype)
+                return full
+
+            return tree_map(put, s, one)
+
+        self._state = _rows_map(self._state, set_row)
         self._abs_pos[slot_idx] = code_phase
         if self._alloc_log is not None:
             self._alloc_log.append(slot_idx)
@@ -927,14 +987,12 @@ class ChannelManager:
         chunk_dev = self._to_device(buf)
         if self._bank_dev is None:
             self._bank_dev = self._bank_to_device()
-        state = self._state._replace(corr=self._state.corr._replace(
-            sample_pos=torch.as_tensor(rel.astype(np.int32),
-                                       device=self.device)))
+        state = _rows_map(self._state, lambda s, r: s._replace(
+            corr=s.corr._replace(sample_pos=torch.as_tensor(
+                rel[r].astype(np.int32), device=s.corr.sample_pos.device))))
         t_disp0 = time.perf_counter()
-        espc = self._espc
         outs = []
-        for j in range(k):
-            win = chunk_dev[j * espc: j * espc + self._win_len]
+        for win in self._epoch_windows(chunk_dev, k):
             state, obs = self._step_epoch(win, self._bank_dev, state)
             outs.append(self._summarize(obs, float(self.cn0_drop)))
         self._state = state
@@ -1006,15 +1064,17 @@ class ChannelManager:
         """One superepoch: retarget sample_pos (base tracking + fresh slot
         rows), then k epochs of (kernel launch + device summary). Returns
         (state', readback tensors)."""
-        dev = self.device
-        sp = state.corr.sample_pos + int(delta)
-        sp = torch.where(torch.as_tensor(mask, device=dev),
-                         torch.as_tensor(newsp.astype(np.int32),
-                                         device=dev), sp)
-        state = state._replace(corr=state.corr._replace(sample_pos=sp))
+        def retarget(s, rows):
+            dev = s.corr.sample_pos.device
+            sp = s.corr.sample_pos + int(delta)
+            sp = torch.where(torch.as_tensor(mask[rows], device=dev),
+                             torch.as_tensor(newsp[rows].astype(np.int32),
+                                             device=dev), sp)
+            return s._replace(corr=s.corr._replace(sample_pos=sp))
+
+        state = _rows_map(state, retarget)
         outs = []
-        for j in range(k):
-            win = chunk[j * self._espc: j * self._espc + self._win_len]
+        for win in self._epoch_windows(chunk, k):
             state, obs = self._step_epoch(win, bank, state)
             outs.append(self._summarize(obs, cn0_drop))
         return state, self._pack_epochs(outs)
@@ -1519,9 +1579,11 @@ class ChannelManager:
             # int64 leaves carry u32 NCO phases.
             return x & U32_MASK if x.dtype == np.int64 else x
 
+        state = (self._state.gather() if isinstance(self._state, Sharded)
+                 else self._state)
         checkpoint.save(
             path,
-            state=_map_state(to_host, self._state),
+            state=tree_map(to_host, state),
             meta={
                 "signal": self.sig.signal,
                 "epoch_ms": self.epoch_ms,
@@ -1538,7 +1600,9 @@ class ChannelManager:
         accumulators continue (phase_u32 bit-exact against an
         uninterrupted run). Call before run(); the source must serve the
         saved stream positions. Every state leaf becomes a fresh device
-        tensor; u32 leaves ride int64 in [0, 2^32). Only a file this
+        tensor (split over the mesh when there is one, so a sharded
+        manager resumes sharded); u32 leaves ride int64 in [0, 2^32).
+        Only a file this
         package wrote is restored: the loader imports every class the
         file names, and a file of the reference receiver names gnsstpu's
         (ValueError)."""
@@ -1563,7 +1627,7 @@ class ChannelManager:
             t = self._put_dev(np.array(x))
             return t & U32_MASK if t.dtype == torch.int64 else t
 
-        self._state = _map_state(to_dev, state)
+        self._state = self._shard(tree_map(to_dev, state))
         self._abs_pos = np.asarray(meta["abs_pos"], np.float64)
         self._cursor = int(meta["cursor"])
         for i, (st, prn, _started) in enumerate(meta["slots"]):
@@ -1579,8 +1643,8 @@ class ChannelManager:
             # saved accumulator and blocks_seen keep carrier phase and
             # the absolute block index continuous across the gap).
             self.eng.write_slot(self._bank, i, s.prn)
-            dopp0 = float(self._state.corr.carr_delta[i]) if hasattr(
-                self._state.corr, "carr_delta") else 0.0
+            dopp0 = float(state.corr.carr_delta[i]) if hasattr(
+                state.corr, "carr_delta") else 0.0
             saved = (meta.get("cph") or {}).get(str(s.prn))
             hist = self._new_history(
                 i, start_ms=0,

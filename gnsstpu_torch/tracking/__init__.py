@@ -5,8 +5,5 @@ ChannelInit / TrackResults, boc.track_boc, dual.track_dual; the chain
 that runtime.receiver.run_receiver and the CLI's `solve` run, whose
 telemetry log the CLI's `analyze` renders) and the GLONASS P-code
 tracker (pcode). Submodules are imported where used, so importing one
-pulls in no other: callers import from tracking.driver.
-
-Not ported yet: the sharded trackers of the reference's parallel/ (the
-CLI's `track --mesh`; ROADMAP queue 1 item 8) and the CLI's `bench`
-(ROADMAP queue 1 item 10, with the H100 benchmark)."""
+pulls in no other: callers import from tracking.driver. The sharded
+trackers (one per shard of a device mesh) are in parallel.fused_shard."""

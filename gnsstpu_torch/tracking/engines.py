@@ -13,6 +13,13 @@ Each returns per-block observables in the EpochObs layout the manager's
 supervision reads, so the manager is family-agnostic; one block is one
 code period (period_ms). The slot bank lives in host numpy arrays; the
 manager mirrors it on the device and swaps rows in place.
+
+With a mesh, an engine's step runs per shard of mesh["channel"]
+(parallel.fused_shard.shard_tracker), the port's analogue of the
+reference's GSPMD (channels are independent): K1, K2 and K3 launch once
+per shard, and the scan trackers run per shard. Unlike the reference,
+whose shard_map wraps K1 alone, Galileo E1B and GLONASS L3OC keep their
+kernels under a mesh.
 """
 
 from __future__ import annotations
@@ -53,20 +60,24 @@ def resolve_engine(mode: str = "auto") -> str:
     return mode
 
 
-def make_engine(cfg: ReceiverConfig, mode: str = "auto"):
-    """(signal family, engine mode) -> adapter instance."""
+def make_engine(cfg: ReceiverConfig, mode: str = "auto", mesh=None):
+    """(signal family, engine mode) -> adapter instance. mesh: a
+    parallel.mesh.Mesh; the engine's step then runs on every shard of
+    mesh["channel"] over its channel slice."""
     name = cfg.signal.signal
+    fused = resolve_engine(mode) == "fused"
     if name == "galileo_e1b":
-        return BocEngine(cfg, fused=resolve_engine(mode) == "fused")
+        return BocEngine(cfg, fused=fused, mesh=mesh)
     if name == "glonass_l3oc":
-        return DualEngine(cfg, fused=resolve_engine(mode) == "fused")
-    return ScanFamilyEngine(cfg, mode)
+        return DualEngine(cfg, fused=fused, mesh=mesh)
+    return ScanFamilyEngine(cfg, mode, mesh=mesh)
 
 
 class _Base:
     has_data_component = False
 
-    def __init__(self, cfg: ReceiverConfig):
+    def __init__(self, cfg: ReceiverConfig, mesh=None):
+        self.mesh = mesh
         self.cfg = cfg
         self.sig = cfg.signal
         self.sd = get_signal(self.sig.signal)
@@ -76,14 +87,24 @@ class _Base:
         #: (abs_sample bookkeeping).
         self.rem_to_samples = self.sig.fs / self.sig.code_freq
 
+    def _sharded(self, tracker):
+        """tracker itself, or run per shard of the mesh."""
+        if self.mesh is None:
+            return tracker
+        from gnsstpu_torch.parallel.fused_shard import shard_tracker
+        return shard_tracker(tracker, self.mesh)
+
 
 class ScanFamilyEngine(_Base):
     """1 ms-code families over tracking.scan or the fused K1 tracker."""
 
     slot_keys = ("codes", "carr_base", "inv_aid")
+    #: Bank keys with a leading channel dimension (split over a mesh).
+    channel_keys = slot_keys
 
-    def __init__(self, cfg: ReceiverConfig, mode: str = "auto"):
-        super().__init__(cfg)
+    def __init__(self, cfg: ReceiverConfig, mode: str = "auto",
+                 mesh=None):
+        super().__init__(cfg, mesh)
         self.name = resolve_engine(mode)
         from gnsstpu_torch.ops import code_tables
 
@@ -138,13 +159,13 @@ class ScanFamilyEngine(_Base):
     def make_step(self, n_blocks: int):
         if self.name == "fused":
             from gnsstpu_torch.tracking.fused import make_fused_tracker
-            tracker = make_fused_tracker(self.sig, self.cfg.track,
-                                         n_blocks=n_blocks)
+            tracker = self._sharded(make_fused_tracker(
+                self.sig, self.cfg.track, n_blocks=n_blocks))
         else:
             from gnsstpu_torch.tracking import scan as tscan
-            tracker = tscan.make_tracker(self.sig, self.cfg.track,
-                                         n_blocks=n_blocks,
-                                         code_mode=self.name)
+            tracker = self._sharded(tscan.make_tracker(
+                self.sig, self.cfg.track, n_blocks=n_blocks,
+                code_mode=self.name))
 
         def step(win, bank, state):
             state, out = tracker(
@@ -172,12 +193,13 @@ class BocEngine(_Base):
     """
 
     slot_keys = ("codes",)
+    channel_keys = ("codes", "carr_base")
 
-    def __init__(self, cfg: ReceiverConfig, fused: bool):
+    def __init__(self, cfg: ReceiverConfig, fused: bool, mesh=None):
         from gnsstpu_torch.signals import galileo_e1
         from gnsstpu_torch.tracking import boc
 
-        super().__init__(cfg)
+        super().__init__(cfg, mesh)
         # sig registry convention: code_freq/code_length at the meandr
         # rate; the primary code is half that (tracking.boc).
         self.rem_to_samples = self.sig.fs / (self.sig.code_freq / 2.0)
@@ -237,7 +259,8 @@ class BocEngine(_Base):
 
         make = boc.make_fused_boc_tracker if self.fused \
             else boc.make_boc_tracker
-        tracker = make(self.sig, self.cfg.track, n_blocks=n_blocks)
+        tracker = self._sharded(make(self.sig, self.cfg.track,
+                                     n_blocks=n_blocks))
 
         def step(win, bank, state):
             state, out = tracker(win, bank["codes"], bank["sub"],
@@ -266,11 +289,12 @@ class DualEngine(_Base):
 
     has_data_component = True
 
-    def __init__(self, cfg: ReceiverConfig, fused: bool):
-        super().__init__(cfg)
+    def __init__(self, cfg: ReceiverConfig, fused: bool, mesh=None):
+        super().__init__(cfg, mesh)
         self.name = "dual_fused" if fused else "dual"
         self.fused = fused
         self.slot_keys = ("tab",) if fused else ("pilot", "data")
+        self.channel_keys = self.slot_keys + ("carr_base",)
 
     def new_bank(self, C: int) -> dict:
         from gnsstpu_torch.ops import nco
@@ -319,14 +343,14 @@ class DualEngine(_Base):
         from gnsstpu_torch.tracking import dual
 
         if self.fused:
-            ftr = dual.make_fused_dual_tracker(self.sig, self.cfg.track,
-                                               n_blocks=n_blocks)
+            ftr = self._sharded(dual.make_fused_dual_tracker(
+                self.sig, self.cfg.track, n_blocks=n_blocks))
 
             def tracker(win, bank, state):
                 return ftr(win, bank["tab"], bank["carr_base"], state)
         else:
-            dtr = dual.make_dual_tracker(self.sig, self.cfg.track,
-                                         n_blocks=n_blocks)
+            dtr = self._sharded(dual.make_dual_tracker(
+                self.sig, self.cfg.track, n_blocks=n_blocks))
 
             def tracker(win, bank, state):
                 return dtr(win, bank["pilot"], bank["data"],

@@ -6,8 +6,8 @@ server and a profiler trace; `track FILE --source-fs` resamples the file
 (also streamed, --stream); `monitor LOG` renders the reference's board;
 `simulate` writes a file that `track` and `acquire` find the sky in;
 `solve FILE` prints the reference's acquisition and decode lines and exit
-code; `analyze LOG` writes the reference's panels. Only --mesh, not ported
-yet, raises instead of being ignored."""
+code; `analyze LOG` writes the reference's panels; `track --mesh
+channel=2` shards the receiver and logs what the unsharded run logs."""
 
 import json
 import os
@@ -55,13 +55,27 @@ def test_track_file(if_file, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("opt", ["--mesh", "--resume"])
-def test_unported_options_raise(if_file, opt):
-    """--mesh, not ported yet, raises NotImplementedError naming its
-    ROADMAP item; --resume is ported, and a checkpoint file that is not
-    there raises."""
-    err = FileNotFoundError if opt == "--resume" else NotImplementedError
-    with pytest.raises(err, match="ROADMAP" if opt != "--resume" else "x"):
-        main(["track", if_file, *ARGS, opt, "x"])
+def test_unported_options_raise(if_file, opt, tmp_path):
+    """--mesh channel=2 runs the receiver sharded over two CPU devices
+    (4 channels) and its telemetry records equal the same run's without
+    --mesh; --resume with a checkpoint file that is not there raises."""
+    if opt == "--resume":
+        with pytest.raises(FileNotFoundError, match="x"):
+            main(["track", if_file, *ARGS, opt, "x"])
+        return
+    logs = []
+    for extra in ([], ["--mesh", "channel=2"]):
+        log = tmp_path / f"tlm{len(logs)}.jsonl"
+        assert main(["track", if_file, *ARGS, "--channels", "4",
+                     "--ms", "400", "--log", str(log), *extra]) == 0
+        logs.append([json.loads(line)
+                     for line in log.read_text().splitlines()])
+    # Every record but its wall-clock stamp, and the stage timings.
+    strip = [[{k: v for k, v in r.items() if k != "t"}
+              for r in recs if r.get("type") != "task_health"]
+             for recs in logs]
+    assert len(strip[0]) > 0
+    assert strip[0] == strip[1]
 
 
 @pytest.fixture(scope="module")

@@ -113,12 +113,21 @@ def test_fused_manager_matches_reference(samples):
 
 
 def test_unported_options_raise(samples, tmp_path):
-    """A mesh is the one part of the manager not ported: it raises. A
+    """mesh= builds a sharded manager (its state split over the channel
+    axis); a mesh whose axis does not divide the channels raises. A
     checkpoint of another signal is refused; a weak ('sum') tier no longer
     raises: a chunk too short for its search starts the accumulation."""
+    from gnsstpu_torch.parallel import make_mesh
+    from gnsstpu_torch.parallel.mesh import Sharded
+
     src = TPacked(samples, fmt="sm2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TManager(src, to_port(_cfg()), device="cpu", mesh=object())
+    sharded = TManager(src, to_port(_cfg()), device="cpu",
+                       mesh=make_mesh([("channel", 3)], devices=["cpu"] * 3))
+    assert isinstance(sharded._state, Sharded)
+    assert len(sharded._state.parts) == 3
+    with pytest.raises(ValueError, match="not divisible"):
+        TManager(src, to_port(_cfg()), device="cpu",
+                 mesh=make_mesh([("channel", 2)], devices=["cpu"] * 2))
     mgr = TManager(src, to_port(_cfg()), device="cpu")
     path = str(tmp_path / "bank.npz")
     mgr.save_checkpoint(path)
