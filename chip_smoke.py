@@ -14,7 +14,8 @@ parallel/, the GPS path sharded over channels, sharded K1, the sharded
 and the time-block searches, torch.distributed, track --mesh, and the
 Galileo and L3OC paths sharded over channels with K2 and K3 per shard),
 then the native host library and the GP2021 integer-correlator
-co-simulation against K1 (phase 36):
+co-simulation against K1 (phase 36), then the bench command (phase 37)
+and the joint GPS + GLONASS fix (phase 38):
   * GPS L1 C/A at the benchmark configuration (bench.py::bench_manager):
     2.048 Msps complex, 12 channels over an 11-satellite geometry-true sky
     plus 2 absent PRNs in the pool, 500 ms epochs, 8-epoch superepochs,
@@ -237,8 +238,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and within 0.1 of each other, both Doppler means within 3 Hz, the
      integer loop's pull-in limits) and K1 launched; the 12-channel sky
      again with the reference's coarse handoff, reported and not gated;
- 18. (printed after 36) K1's launches on each of its paths in this
-     process (the CLI's are its own process's), K2's and K3's by path;
+ 37. bench: `python -m gnsstpu_torch bench` run in this process
+     (gnsstpu_torch/__main__.py -> gnsstpu_torch/bench.py), its JSON
+     line printed: K1's realtime factor, ms per launch and residency at
+     12 / 48 / 192 / 768 channels, the 32 PRN x 29 bin x 2,048-lag cold
+     search, and the live GPS receiver host-fed and with the signal on
+     the card; each rate > 1, the grid, both receivers within phase 5's
+     limits (navigator armed, >= 8 ephemerides, >= 10 fixes, last fix <
+     100 m, the 11 sky SVs live, engine fused), K1 launched and K2 / K3
+     not, no JAX;
+ 38. gps_glonass_joint_fix_6ch: tests/test_joint_pvt.py:44-124 on the
+     card: GPS L1 C/A (visible_ephs(6)[:3], seed 21) and GLONASS L1OF
+     (make_glonass_constellation(n=3), seed 31), 4.096 Msps, 24 s and 3
+     channels each, with the reference's noise through run_receiver (K1
+     at blkp 4,098 for both): each alone 3 ephemerides and no fix; one
+     SystemObs per system into navigate_joint over 10 epochs: >= 8 valid,
+     mean 3D error < 30 m and max < 100 m, inter-system bias std < 15 m,
+     6 satellites in every valid epoch;
+ 18. (printed after 38) K1's launches on each of its paths in this
+     process (the CLI's subprocesses are their own; bench's runs in this
+     one), K2's and K3's by path;
 Phases 22-25 track the very signal of the reference test they name: the
 port's simulator with the reference's noise (IFSimulator(noise="jax"),
 jax.random's draws made without JAX) behind the reference test's
@@ -282,6 +301,11 @@ import torch
 from gnsstpu_torch import (AcqConfig, NavConfig, ReceiverConfig,
                            SignalConfig, TrackConfig)
 from gnsstpu_torch.acquisition import search
+from gnsstpu_torch.bench import (GPS_CHANNELS, GPS_EPOCH_MS, GPS_SECONDS,
+                                 GPS_SYNC, gps_config, gps_manager, gps_sky,
+                                 gps_windows)
+from gnsstpu_torch.bench import GPS_SIG as SIG
+from gnsstpu_torch.bench import GPS_TRK as TRK
 from gnsstpu_torch.device import u32_numpy, u32_tensor
 from gnsstpu_torch.nav import glonass_l3 as l3nav
 from gnsstpu_torch.nav.viterbi import conv_encode, viterbi_decode
@@ -313,7 +337,6 @@ from gnsstpu_torch.sim import IFSimulator, SatParams
 from gnsstpu_torch.signals import galileo_e1, glonass_l3
 from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.sim.scenario import (beidou_constellation,
-                                        bench_constellation,
                                         build_scenario_glonass,
                                         galileo_constellation,
                                         make_glonass_constellation,
@@ -323,8 +346,6 @@ from gnsstpu_torch.tracking import dual as tdual
 from gnsstpu_torch.tracking import fused as tfused
 from gnsstpu_torch.tracking import scan as tscan
 
-SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
-TRK = TrackConfig(dll_bw=1.0, el_spacing=0.3, pll_bw=25.0, fll_bw=250.0)
 K1_SOURCE = "gnsstpu_torch/csrc/track_fused.cu"
 K1_REPLACES = "gnsstpu/ops/track_kernel.py:274"
 # K1's other families and rates (blkp = samples per code + 2): BeiDou B1I
@@ -732,38 +753,12 @@ def device_signal(sig, sats, n_ms: int, seed: int, device,
     return DevicePackedArraySource(buf, fmt="sm2", scale=1.0, device=device)
 
 
-#: The GPS main path's configuration (bench.py::bench_manager): seconds
-#: of signal measured past the warm-up, 12 channels, 500 ms epochs x 8.
-GPS_SECONDS, GPS_CHANNELS, GPS_EPOCH_MS, GPS_SYNC = 44, 12, 500, 8
-
-
-def gps_sky(sig=SIG) -> tuple:
-    """(sats, sky PRNs, receiver ECEF, absent PRNs) of the GPS main path:
-    bench_constellation's 11 highest SVs plus 2 PRNs not in the sky."""
-    sats, prns, recv = bench_constellation(sig, GPS_CHANNELS - 1,
-                                           duration_s=GPS_SECONDS + 1.0)
-    absent = [p for p in range(1, 33) if p not in prns][:2]
-    return sats, prns, recv, absent
-
-
-def gps_config(pool, sig=SIG) -> ReceiverConfig:
-    return ReceiverConfig(
-        signal=sig,
-        acq=AcqConfig(doppler_band=8e3, coherent_ms=2, threshold=2.4,
-                      prn_list=tuple(pool)),
-        track=TRK,
-        nav=NavConfig(sol_period_ms=1000, elevation_mask_deg=5.0,
-                      use_tropo=False),
-        n_channels=GPS_CHANNELS)
-
-
 def gps_main_path(device, src=None, mesh=None) -> tuple:
     """The bench_manager configuration through the port's manager (on a
     mesh when one is given, over `src` when one is given). Returns
     (results, the sm2 source on the card, run_snapshot of the
     manager)."""
-    seconds, epoch_ms, sync_every = GPS_SECONDS, GPS_EPOCH_MS, GPS_SYNC
-    n_ms = seconds * 1000
+    n_ms = GPS_SECONDS * 1000
     sats, prns, recv, absent = gps_sky()
     t0 = time.perf_counter()
     if src is None:
@@ -775,16 +770,11 @@ def gps_main_path(device, src=None, mesh=None) -> tuple:
     coll = _Collector()
     tlm = Telemetry(sink=None)
     tlm.subscribe(coll)
-    warm_ms = 2 * sync_every * epoch_ms
+    warm_ms, meas_ms = gps_windows(n_ms)
     tk.reset_launches()
-    mgr = ChannelManager(
-        src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
-        reacq_period_ms=1000, sync_every=sync_every, navigator=navr,
-        prn_pool=pool, prefetch=True, readback="compact",
-        history_window_ms=36_000, engine="fused", mesh=mesh)
+    mgr = gps_manager(src, cfg, pool, device=device, telemetry=tlm,
+                      navigator=navr, engine="fused", mesh=mesh)
     mgr.run(warm_ms)
-    sup_ms = sync_every * epoch_ms
-    meas_ms = ((n_ms - warm_ms - epoch_ms) // (2 * sup_ms)) * 2 * sup_ms
     coll.enabled = True
     mgr._next_reacq_ms = 0           # re-arm a search for the window
     t0 = time.perf_counter()
@@ -1657,12 +1647,9 @@ def gps_tcp_live_path(device, wire: np.ndarray, k1_ms: float,
                 raise AssertionError("station client never connected")
             time.sleep(0.01)
         tk.reset_launches()
-        mgr = ChannelManager(
-            src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
-            reacq_period_ms=1000, sync_every=sync_every, navigator=navr,
-            prn_pool=list(pool), prefetch=True, readback="compact",
-            history_window_ms=36_000, engine="fused",
-            commands=srv.commands)
+        mgr = gps_manager(src, cfg, list(pool), device=device,
+                          telemetry=tlm, navigator=navr, engine="fused",
+                          commands=srv.commands)
         fill.start()
         sender.start()
         warm_ms = 2 * sync_every * epoch_ms
@@ -2328,14 +2315,13 @@ def raise_failed(tag: str, rec: dict) -> None:
         raise AssertionError(f"{tag} checks failed: {failed}")
 
 
-def gps_solve_sky() -> tuple:
-    """tests/test_full_chain.py's sky: visible_ephs(6) (bench_constellation's
-    24 orbits, the 6 highest) through build_scenario at 47 dB-Hz.
-    Returns (sats, {prn: ephemeris}, receiver ECEF)."""
+def gps_solve_ephs() -> tuple:
+    """tests/test_full_chain.py::visible_ephs(6): bench_constellation's 24
+    orbits, the 6 highest, highest first. Returns ({prn: ephemeris},
+    receiver ECEF)."""
     from gnsstpu_torch.nav.orbits import satpos
     from gnsstpu_torch.nav.types import Ephemeris
     from gnsstpu_torch.nav import geodesy
-    from gnsstpu_torch.sim.scenario import build_scenario
 
     base = dict(
         t_oc=266400.0, a_f0=2.45e-4, a_f1=-3.2e-12, a_f2=0.0,
@@ -2354,7 +2340,16 @@ def gps_solve_sky() -> tuple:
         ephs.append(Ephemeris(**d))
     pos, _ = satpos(FC_TOW0_6S * 6.0, ephs)
     _, el, _ = geodesy.topocent(recv, pos - recv)
-    chosen = {int(k) + 1: ephs[k] for k in np.argsort(-el)[:6]}
+    return {int(k) + 1: ephs[k] for k in np.argsort(-el)[:6]}, recv
+
+
+def gps_solve_sky() -> tuple:
+    """tests/test_full_chain.py's sky: visible_ephs(6) through
+    build_scenario at 47 dB-Hz. Returns (sats, {prn: ephemeris},
+    receiver ECEF)."""
+    from gnsstpu_torch.sim.scenario import build_scenario
+
+    chosen, recv = gps_solve_ephs()
     sats = build_scenario(SIG, chosen, recv, FC_TOW0_6S,
                           duration_s=FC_NMS / 1000.0, cn0_dbhz=47.0)
     return sats, chosen, recv
@@ -3242,6 +3237,191 @@ def cosim_run(device, sky, acq: AcqConfig) -> dict:
                     "per_prn": rows}, checks)
 
 
+#: bench_manager's limits in phase 37, phase 5's: ephemerides, fixes, the
+#: last fix's error [m], and every sky SV live at the end.
+BENCH_LIMITS = {"ephemerides": 8, "fixes": 10, "pos_err_m": 100.0,
+                "live": GPS_CHANNELS - 1}
+
+
+def bench_path() -> tuple:
+    """Phase 37: `python -m gnsstpu_torch bench` in this process, so K1's
+    launches are counted: (its JSON line, the phase's record with its
+    checks)."""
+    import contextlib
+    import io
+
+    from gnsstpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["bench"])
+    wall = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    line = out.getvalue().strip().splitlines()[-1]
+    ex = json.loads(line)["extra"]
+    checks = {"exit 0": rc == 0}
+    for C, rt in ex["tracking_scaling_channels_rt"].items():
+        checks[f"C={C} realtime factor > 1"] = rt > 1.0
+    checks["channel counts 12 / 48 / 192 / 768"] = sorted(
+        ex["tracking_scaling_channels_rt"], key=int) == ["12", "48", "192",
+                                                         "768"]
+    checks["acquisition grid [32, 29, 2048]"] = (
+        ex["acquisition_32prn_cold_search"]["grid"] == [32, 29, 2048])
+    lim = BENCH_LIMITS
+    for key in ("manager_end_to_end", "manager_device_resident"):
+        m = ex[key]
+        nav = m["navigator"]
+        checks[f"{key}: navigator armed"] = nav["armed"]
+        checks[f"{key}: >= {lim['ephemerides']} ephemerides"] = (
+            nav.get("ephemerides_decoded", 0) >= lim["ephemerides"])
+        checks[f"{key}: >= {lim['fixes']} fixes"] = (
+            nav.get("pvt_solutions", 0) >= lim["fixes"])
+        checks[f"{key}: last fix < {lim['pos_err_m']:g} m"] = (
+            nav.get("pos_err_m", 1e9) < lim["pos_err_m"])
+        checks[f"{key}: {lim['live']} live channels"] = (
+            m["live_channels_at_end"] >= lim["live"])
+        checks[f"{key}: engine fused"] = m["engine"] == "fused"
+    checks["K1 launched, K2 and K3 not"] = (
+        launches["track_chunk_fused"] > 0
+        and launches["track_chunk_boc_fused"] == 0
+        and launches["track_chunk_dual_fused"] == 0)
+    refused = refused_modules()
+    checks["no jax or gnsstpu module loaded"] = not refused
+    return line, {"wall_s": wall, "k1_launches": launches[
+        "track_chunk_fused"], "refused_modules": refused, "checks": checks}
+
+
+#: tests/test_joint_pvt.py:44-84: GPS L1 C/A and GLONASS L1OF on one
+#: 4.096 Msps clock, 24 s each, 3 channels each, against one receiver.
+JOINT_NMS = 24000
+JSIG = SignalConfig(if_freq=0.0, fs=4.096e6, complex_iq=True)
+JOINT_NAV = NavConfig(sol_period_ms=500, elevation_mask_deg=10.0,
+                      use_tropo=False)
+JOINT_EPOCHS = 10
+
+
+def joint_setup() -> dict:
+    """The reference test's two receivers: for "gps" and "glonass" the
+    signal, sats, ReceiverConfig, SimSource length and seed, and the
+    receiver position."""
+    from gnsstpu_torch.sim.scenario import build_scenario
+
+    chosen, recv = gps_solve_ephs()
+    ephs_g = dict(list(chosen.items())[:3])
+    sats_g = build_scenario(JSIG, ephs_g, recv, FC_TOW0_6S,
+                            duration_s=JOINT_NMS / 1000.0, cn0_dbhz=47.0)
+    cfg_g = ReceiverConfig(
+        signal=JSIG,
+        acq=AcqConfig(doppler_band=10e3, coherent_ms=2, threshold=2.4,
+                      prn_list=tuple(ephs_g), fine_doppler_ms=10),
+        track=TrackConfig(dll_bw=1.0, pll_bw=25.0, fll_bw=250.0),
+        nav=JOINT_NAV, n_channels=3)
+    gephs = make_glonass_constellation(recv, GFIX_TB, n=3)
+    sats_r, qephs = build_scenario_glonass(
+        OSIG4, gephs, recv, GFIX_T0, duration_s=JOINT_NMS / 1000.0,
+        cn0_dbhz=48.0, n_strings=8)
+    cfg_r = ReceiverConfig(
+        signal=OSIG4,
+        acq=AcqConfig(doppler_band=14e3, coherent_ms=2, threshold=2.5,
+                      prn_list=tuple(qephs), fine_doppler_ms=10),
+        track=OTRK, nav=JOINT_NAV, n_channels=3)
+    return {"gps": dict(sig=JSIG, sats=sats_g, cfg=cfg_g,
+                        src_ms=JOINT_NMS + 50, seed=21),
+            "glonass": dict(sig=OSIG4, sats=sats_r, cfg=cfg_r,
+                            src_ms=JOINT_NMS + 60, seed=31),
+            "recv": recv}
+
+
+def system_obs(out, sig, satpos_fn):
+    """tests/test_joint_pvt.py::_system_obs on the port: one system's
+    SystemObs from a ReceiverOutput, every channel advanced to the latest
+    anchor time (navigate_from_anchors's alignment)."""
+    from gnsstpu_torch.nav import pvt
+
+    good = [c for c, ch in enumerate(out.channels)
+            if ch.prn in out.ephs and out.anchors[c].found]
+    period = sig.code_period_s
+    t0 = max(out.anchors[c].t_anchor for c in good)
+    sf = [out.anchors[c].anchor_idx
+          + int(round((t0 - out.anchors[c].t_anchor) / period))
+          for c in good]
+    return pvt.SystemObs(
+        prns=[out.channels[c].prn for c in good],
+        abs_sample=out.track.abs_sample[good],
+        subframe_start=sf, tow_s=t0, ephs=out.ephs,
+        satpos_fn=satpos_fn, code_period_s=period, fs=sig.fs)
+
+
+def joint_fix_checks(sol, recv) -> dict:
+    """The joint solution's figures and tests/test_joint_pvt.py:108-124's
+    limits on them."""
+    v = sol.valid
+    err = np.linalg.norm(np.stack([sol.x[v], sol.y[v], sol.z[v]], 1)
+                         - recv, axis=1)
+    inter = sol.inter_sys[v, 0]
+    rec = {"valid_epochs": int(v.sum()), "epochs": int(len(v)),
+           "mean_3d_err_m": float(err.mean()) if len(err) else None,
+           "max_3d_err_m": float(err.max()) if len(err) else None,
+           "inter_sys_bias_std_m": float(np.std(inter)) if len(err)
+           else None,
+           "n_sats": sorted({int(n) for n in sol.n_sats[v]})}
+    rec["checks"] = {k: bool(v) for k, v in {
+        ">= 8 of 10 epochs valid": rec["valid_epochs"] >= 8,
+        "mean 3D < 30 m, max < 100 m": bool(len(err)) and err.mean() < 30.0
+        and err.max() < 100.0,
+        "inter-system bias std < 15 m": bool(len(err))
+        and np.std(inter) < 15.0,
+        "6 satellites in every valid epoch": rec["n_sats"] == [6],
+    }.items()}
+    return rec
+
+
+def joint_fix_path(device, k1_ms: float) -> dict:
+    """Phase 38, gps_glonass_joint_fix_6ch: the reference test's two
+    receivers through the port's run_receiver on the card (K1 at blkp
+    4,098 for both; each run first records its source's reads, then the
+    timed run replays them), each alone without a fix, then one joint
+    solve (SystemObs + navigate_joint) of all six satellites."""
+    from gnsstpu_torch.nav import glonass as gl
+    from gnsstpu_torch.nav import pvt
+    from gnsstpu_torch.nav.orbits import satpos
+
+    st = joint_setup()
+    rec = {"blkp": JSIG.samples_per_code + 2}
+    outs = {}
+    for name in ("gps", "glonass"):
+        s = st[name]
+        src = ReplaySource(s["sig"], s["sats"], s["src_ms"], s["seed"],
+                           device)
+        out, r = offline_run(device, src, s["cfg"], JOINT_NMS,
+                             "track_chunk_fused", k1_ms,
+                             JOINT_NMS / 1000.0)
+        r["alone"] = fix_errors(out.nav, st["recv"])
+        outs[name], rec[name] = out, r
+    t0 = time.perf_counter()
+    sol = pvt.navigate_joint(
+        [system_obs(outs["gps"], JSIG, satpos),
+         system_obs(outs["glonass"], OSIG4, gl.satpos_gl)],
+        JOINT_NAV, JOINT_EPOCHS)
+    rec["joint_solve_s"] = time.perf_counter() - t0
+    joint = joint_fix_checks(sol, st["recv"])
+    rec["joint"] = joint
+    rec["launches"] = rec["gps"]["launches"] + rec["glonass"]["launches"]
+    checks = dict(joint.pop("checks"))
+    for name in ("gps", "glonass"):
+        r, out = rec[name], outs[name]
+        checks[f"{name}: 3 ephemerides, no fix alone"] = (
+            len(out.ephs) == 3 and out.nav is None)
+        checks[f"{name}: K1 launched, no other"] = (
+            r["launches"] > 0 and r["other_kernel_launches"] == 0)
+        checks[f"{name}: no jax or gnsstpu module loaded"] = (
+            not r["refused_modules"])
+    rec["checks"] = checks
+    return rec
+
+
 def main() -> int:
     t_start = time.time()
     # 1. Device.
@@ -3650,8 +3830,21 @@ def main() -> int:
     for k, v in cres36.items():
         raise_failed(f"gp2021 cosim {k}", v)
 
+    # 37. The bench command in this process.
+    bench_line, bench_res = bench_path()
+    print(f"[37 bench] {bench_line}", flush=True)
+    print(f"[37 bench] {json.dumps(bench_res)}", flush=True)
+    raise_failed("bench", bench_res)
+
+    # 38. The joint GPS + GLONASS fix over the reference test's signals.
+    k1_joint = k1_alone(3, 256, dev, JSIG, TRK)
+    jres = joint_fix_path(dev, k1_joint["ms"])
+    jres["k1_shape"] = k1_joint
+    print(f"[38 gps_glonass_joint_fix_6ch] {json.dumps(jres)}", flush=True)
+    raise_failed("gps_glonass_joint_fix_6ch", jres)
+
     # 18. K1's launches on each path in this process (the CLI's run in
-    # its own process, uncounted).
+    # its own process, uncounted; bench's in this one).
     k1_paths = {"gps_l1_live_12ch": res["k1_launches"],
                 "gps_l1_live_12ch_mesh2": mres["k1_launches"],
                 "beidou_b1i_live_12ch": bres["k1_launches"],
@@ -3661,7 +3854,9 @@ def main() -> int:
                 "gps_l1_solve_8ch": sres["launches"],
                 "beidou_b1i_solve_6ch": bsres["launches"],
                 "glonass_l1of_solve_6ch": osres["launches"],
-                "gps_l1_gp2021_cosim_12ch": k1_cosim}
+                "gps_l1_gp2021_cosim_12ch": k1_cosim,
+                "bench": bench_res["k1_launches"],
+                "gps_glonass_joint_fix_6ch": jres["launches"]}
     print(f"[18 K1 launches by path] {json.dumps(k1_paths)} | K2: "
           f"galileo_e1b_live_12ch {gres['k2_launches']}, "
           f"galileo_e1b_solve_5ch {gsres['launches']}, "

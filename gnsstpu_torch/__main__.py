@@ -24,11 +24,12 @@ Mirrors `python -m gnsstpu` (gnsstpu/cli.py) on a CUDA device (or
             tcp://HOST:PORT, of a receiver's station server
   analyze   render the analysis panels of a telemetry log (viz; needs
             matplotlib, which only this command imports)
+  bench     the benchmark (gnsstpu_torch.bench: K1's channel scaling, the
+            cold search and the full receiver, host-fed and with the
+            signal on the card), one JSON line; the reference's runs the
+            TPU round's bench.py
 
-Of the reference's commands only `bench` is not ported (the reference's
-runs the TPU round's bench.py; the port's waits for the H100 benchmark,
-ROADMAP queue 1 item 10). A
-live stream's history and FIFO hold two of the manager's chunks (at
+A live stream's history and FIFO hold two of the manager's chunks (at
 least the reference's 1,024 blocks), so no read of a superepoch falls
 off the ring.
 """
@@ -457,6 +458,13 @@ def cmd_analyze(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from gnsstpu_torch import bench
+
+    bench.main(device=args.device)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="gnsstpu_torch", description=__doc__,
                                  formatter_class=argparse.
@@ -580,6 +588,11 @@ def main(argv=None) -> int:
     p.add_argument("log")
     p.add_argument("--out", default="analysis")
     p.set_defaults(fn=cmd_analyze)
+
+    p = sub.add_parser("bench", help="run the benchmark on the card")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the card; default) or cpu")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

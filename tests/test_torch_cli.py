@@ -7,7 +7,9 @@ server and a profiler trace; `track FILE --source-fs` resamples the file
 `simulate` writes a file that `track` and `acquire` find the sky in;
 `solve FILE` prints the reference's acquisition and decode lines and exit
 code; `analyze LOG` writes the reference's panels; `track --mesh
-channel=2` shards the receiver and logs what the unsharded run logs."""
+channel=2` shards the receiver and logs what the unsharded run logs;
+`bench` runs gnsstpu_torch.bench.main, and without a card raises before
+measuring anything."""
 
 import json
 import os
@@ -19,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from gnsstpu.config import SignalConfig
 from gnsstpu.sim import IFSimulator, SatParams
@@ -315,3 +318,30 @@ def test_analyze_writes_the_reference_panels(if_file, tmp_path, capsys):
     assert said[0] == said[1]
     assert "wrote DIR/health.png" in said[0]
     assert os.path.getsize(tmp_path / "port" / "health.png") > 0
+
+
+def test_bench_dispatches_to_the_bench_module(monkeypatch):
+    """`bench` is registered, as in the reference's CLI, and runs
+    gnsstpu_torch.bench.main on --device (the card by default)."""
+    from gnsstpu_torch import bench
+
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda device: calls.append(device))
+    assert main(["bench", "--device", "cpu"]) == 0
+    assert main(["bench"]) == 0
+    assert calls == ["cpu", "cuda"]
+
+
+def test_bench_without_a_card_raises_first(monkeypatch):
+    """`bench` on the card without one raises before any measurement
+    (a host with a card is made to look like one without)."""
+    from gnsstpu_torch import bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    for name in ("bench_tracking", "bench_acquisition", "bench_manager"):
+        monkeypatch.setattr(bench, name,
+                            lambda *a, name=name, **k: ran.append(name))
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(["bench"])
+    assert ran == []

@@ -8,9 +8,11 @@ the fused engine (K3's twin). A GPU host need not have JAX
 installed, and the port carries its own copies of the reference's host
 modules, so any such import would be a fault.
 
-The entry points run on the card unless the caller asks for the CPU:
-without a card, acquire(), IFSimulator and ChannelManager called without a
-device raise instead of running on the CPU.
+The subprocess also runs the bench module's tracking measurement on the
+CPU (K1's twin). The entry points run on the card unless the caller asks
+for the CPU: without a card, acquire(), IFSimulator, ChannelManager and
+the others below, the bench module's measurements among them, called
+without a device raise instead of running on the CPU.
 """
 
 import os
@@ -59,6 +61,7 @@ SCRIPT = textwrap.dedent("""
     from gnsstpu_torch.tracking.driver import ChannelInit, track
     from gnsstpu_torch.tracking.dual import track_dual
     from gnsstpu_torch import TrackConfig
+    from gnsstpu_torch.bench import bench_manager, bench_tracking
 
     sig = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
     gsig = SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
@@ -147,6 +150,11 @@ SCRIPT = textwrap.dedent("""
     lh = lmgr.prompt_stream(14)
     assert len(lh["q_p2"]) == len(lh["i_p"]) == 200
 
+    from gnsstpu_torch import bench
+    brt = bench.bench_tracking(bench.GPS_SIG, bench.GPS_TRK, C=2,
+                               n_blocks=2, k_lo=1, k_hi=2, device="cpu")
+    assert brt["realtime_factor"] > 0, brt
+
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not loaded, loaded
     print("NOJAX-OK", n_gps, len(grecs), len(lrecs))
@@ -168,7 +176,8 @@ def test_port_never_imports_jax():
                                    "ChannelManager", "ResampledSource",
                                    "polyphase_resample", "track",
                                    "track_boc", "track_dual",
-                                   "run_receiver"])
+                                   "run_receiver", "bench_tracking",
+                                   "bench_manager"])
 def test_entry_points_default_to_the_card(entry):
     """Called without `device`, an entry point asks for the card: on a
     host without one it raises, never quietly running on the CPU."""
@@ -185,6 +194,7 @@ def test_entry_points_default_to_the_card(entry):
     from gnsstpu_torch.tracking.driver import ChannelInit, track
     from gnsstpu_torch.tracking.dual import track_dual
     from gnsstpu_torch import TrackConfig
+    from gnsstpu_torch.bench import bench_manager, bench_tracking
 
     sig = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
     gsig = SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
@@ -222,6 +232,10 @@ def test_entry_points_default_to_the_card(entry):
             ReceiverConfig(signal=sig, acq=AcqConfig(coherent_ms=1,
                                                      doppler_band=1e3),
                            n_channels=1), 2),
+        "bench_tracking": lambda: bench_tracking(sig, TrackConfig(), 2, 2),
+        "bench_manager": lambda: bench_manager(
+            sig, seconds=2, n_channels=2, epoch_ms=100, sync_every=2,
+            navigate=False),
     }
     if torch.cuda.is_available():
         got = calls[entry]()

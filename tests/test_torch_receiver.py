@@ -29,7 +29,6 @@ from gnsstpu.config import (AcqConfig, NavConfig, ReceiverConfig,
 from gnsstpu.nav import geodesy
 from gnsstpu.runtime import receiver as jrec
 from gnsstpu.runtime.sources import ArraySource as JArraySource
-from gnsstpu.signals.registry import get_signal
 from gnsstpu.sim import IFSimulator, SatParams
 from gnsstpu.sim.scenario import build_scenario
 from gnsstpu.tracking import driver as jdriver
@@ -39,7 +38,7 @@ from gnsstpu_torch.runtime.sources import ArraySource
 from gnsstpu_torch.tracking import driver as tdriver
 from test_full_chain import RECV_ECEF, TOW0_6S, visible_ephs
 from torch_port import one_torch_thread_per_worker  # noqa: F401
-from torch_port import to_port
+from torch_port import nav_record, to_port
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 CFG = ReceiverConfig(
@@ -102,32 +101,6 @@ def test_run_receiver_matches_reference(samples, monkeypatch):
     assert set(got.stage_s) == {"acquire", "track", "decode_nav"}
 
 
-def _record(sig, sats, n_ms, seed):
-    """(i_p, abs_sample, carr_freq), each [C, n_ms], of a tracker that
-    followed `sats` perfectly: code period m of channel c ends at
-    abs_sample[c, m] under the simulator's code-phase model
-    (gnsstpu/sim/generator.py: chips(t) = f_code t (1 + (fd + rate t / 2)
-    / f_carr) - code_phase_chips), and its prompt is its nav bit."""
-    sd = get_signal(sig.signal)
-    rng = np.random.default_rng(seed)
-    m = np.arange(1, n_ms + 1, dtype=np.float64)
-    i_p, abs_s, carr = [], [], []
-    for s in sats:
-        f_carr = sd.carrier_freq(s.prn)
-        a = sig.code_freq * 0.5 * s.doppler_rate / f_carr
-        b = sig.code_freq * (1.0 + s.doppler_hz / f_carr)
-        c = m * sig.code_length + s.code_phase_chips
-        t_end = 2.0 * c / (b + np.sqrt(b * b + 4.0 * a * c))
-        abs_s.append(t_end * sig.fs)
-        t_start = np.concatenate([[t_end[0] - 1e-3], t_end[:-1]])
-        carr.append(sig.if_freq + s.doppler_hz + s.doppler_rate * t_start)
-        bits = np.asarray(s.nav_bits)[(m.astype(np.int64) - 1)
-                                      // sd.bit_len_codes]
-        i_p.append(600.0 * bits + rng.normal(0.0, 40.0, n_ms))
-    return (np.array(i_p, np.float32), np.array(abs_s),
-            np.array(carr))
-
-
 def _gps_sky():
     """tests/test_full_chain.py's scenario: (sig, sats, truth ephemeris
     PRNs, receiver, code periods, the limits of its fix)."""
@@ -154,7 +127,7 @@ def _galileo_sky():
 def record(request):
     sig, sats, truth, recv, n_ms, limits = (
         _gps_sky() if request.param == "gps_l1ca" else _galileo_sky())
-    i_p, abs_s, carr = _record(sig, sats, n_ms, seed=3)
+    i_p, abs_s, carr = nav_record(sig, sats, n_ms, seed=3)
     z = np.zeros_like(i_p)
     fields = dict(prn=np.array([s.prn for s in sats]),
                   status=np.ones(len(sats), bool), i_e=z, q_e=z, i_p=i_p,

@@ -4,6 +4,7 @@ import dataclasses
 import importlib
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,3 +41,36 @@ def one_torch_thread_per_worker():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def nav_record(sig, sats, n_ms, seed):
+    """(i_p, abs_sample, carr_freq), each [C, n_ms], of a tracker that
+    followed gnsstpu SatParams `sats` perfectly: code period m of channel
+    c ends at abs_sample[c, m] under the simulator's code-phase model
+    (gnsstpu/sim/generator.py: chips(t) = f_code t (1 + (fd + rate t / 2)
+    / f_carr) - code_phase_chips, f_carr the satellite's own carrier, an
+    FDMA channel's included), and its prompt is its nav symbol with
+    seeded noise; past the last symbol it holds the last one, as the
+    simulator does."""
+    from gnsstpu.signals.registry import get_signal
+
+    sd = get_signal(sig.signal)
+    rng = np.random.default_rng(seed)
+    m = np.arange(1, n_ms + 1, dtype=np.float64)
+    i_p, abs_s, carr = [], [], []
+    for s in sats:
+        f_carr = sd.carrier_freq(s.prn)
+        a = sig.code_freq * 0.5 * s.doppler_rate / f_carr
+        b = sig.code_freq * (1.0 + s.doppler_hz / f_carr)
+        c = m * sig.code_length + s.code_phase_chips
+        t_end = 2.0 * c / (b + np.sqrt(b * b + 4.0 * a * c))
+        abs_s.append(t_end * sig.fs)
+        t_start = np.concatenate([[t_end[0] - 1e-3], t_end[:-1]])
+        carr.append(sig.if_freq + s.if_offset_hz + s.doppler_hz
+                    + s.doppler_rate * t_start)
+        nav = np.asarray(s.nav_bits)
+        idx = (m.astype(np.int64) - 1) // sd.bit_len_codes
+        bits = nav[np.minimum(idx, len(nav) - 1)]
+        i_p.append(600.0 * bits + rng.normal(0.0, 40.0, n_ms))
+    return (np.array(i_p, np.float32), np.array(abs_s),
+            np.array(carr))
