@@ -14,8 +14,9 @@ parallel/, the GPS path sharded over channels, sharded K1, the sharded
 and the time-block searches, torch.distributed, track --mesh, and the
 Galileo and L3OC paths sharded over channels with K2 and K3 per shard),
 then the native host library and the GP2021 integer-correlator
-co-simulation against K1 (phase 36), then the bench command (phase 37)
-and the joint GPS + GLONASS fix (phase 38):
+co-simulation against K1 (phase 36), then the bench command (phase 37),
+the joint GPS + GLONASS fix (phase 38) and the five end-to-end examples
+(phase 39):
   * GPS L1 C/A at the benchmark configuration (bench.py::bench_manager):
     2.048 Msps complex, 12 channels over an 11-satellite geometry-true sky
     plus 2 absent PRNs in the pool, 500 ms epochs, 8-epoch superepochs,
@@ -255,9 +256,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      SystemObs per system into navigate_joint over 10 epochs: >= 8 valid,
      mean 3D error < 30 m and max < 100 m, inter-system bias std < 15 m,
      6 satellites in every valid epoch;
- 18. (printed after 38) K1's launches on each of its paths in this
-     process (the CLI's subprocesses are their own; bench's runs in this
-     one), K2's and K3's by path;
+ 39. examples: the five end-to-end examples (examples/torch_e2e_gps_l1,
+     _position_fix, _glonass_fix, _joint_fix and _multichip.py, the
+     ports of examples/e2e_*.py), each in a fresh python3 process on the
+     card behind an import system that refuses jax, jaxlib and gnsstpu
+     (EXAMPLE_BOOT, which reads main()'s dict and K1's launch counter),
+     each with a timeout of its own; per example a line: PASS, wall,
+     signal s / wall s, its decode outcome or fix error, and K1's
+     launches, held to its reference script's PASS limits (GPS: PRN 7
+     alone, ephemeris bit-exact, TOW 266,400 s; position fix: mean 3D
+     error < 20 m; GLONASS L1OF: < 25 m; joint: neither system alone
+     fixes, >= 8 of 10 epochs valid, < 30 m, bias std < 15 m; multichip:
+     a live PRN, the state Sharded on the mesh), K1 launched and K2 / K3
+     not, no jax or gnsstpu module loaded;
+ 18. (printed after 39) K1's launches on each of its paths (the
+     examples' in their own processes, read back; the CLI's subprocesses
+     uncounted; bench's in this one), K2's and K3's by path;
 Phases 22-25 track the very signal of the reference test they name: the
 port's simulator with the reference's noise (IFSimulator(noise="jax"),
 jax.random's draws made without JAX) behind the reference test's
@@ -3422,6 +3436,136 @@ def joint_fix_path(device, k1_ms: float) -> dict:
     return rec
 
 
+#: Phase 39: the end-to-end examples, in the order they were ported, and
+#: each one's seconds before its process is killed.
+EXAMPLES = ("torch_e2e_gps_l1", "torch_e2e_position_fix",
+            "torch_e2e_glonass_fix", "torch_e2e_joint_fix",
+            "torch_e2e_multichip")
+EXAMPLE_TIMEOUT_S = 120
+EXAMPLE_TAG = "EXAMPLE-RESULT "
+
+#: `python3 -c EXAMPLE_BOOT PATH DEVICE`: loads the example at PATH in an
+#: interpreter whose import system refuses jax, jaxlib and gnsstpu (as
+#: tests/test_torch_nojax.py does), calls its main(device=DEVICE) with
+#: K1's launch counter at 0 and prints, after the example's own output,
+#: one line tagged EXAMPLE_TAG: main()'s dict, its wall, every kernel's
+#: launches and the refused modules loaded (none). A failing example
+#: raises here.
+EXAMPLE_BOOT = """
+import importlib.abc, importlib.util, json, sys, time
+
+REFUSED = ("jax", "jaxlib", "gnsstpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+path, device = sys.argv[1], sys.argv[2]
+spec = importlib.util.spec_from_file_location("example", path)
+example = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(example)
+from gnsstpu_torch.ops import track_kernel as tk
+
+tk.reset_launches()
+t0 = time.perf_counter()
+result = example.main(device=device)
+wall = time.perf_counter() - t0
+print("EXAMPLE-RESULT " + json.dumps({
+    "result": result, "main_wall_s": wall, "launches": dict(tk.LAUNCHES),
+    "refused_modules": sorted(m for m in sys.modules
+                              if m.split(".")[0] in REFUSED)}), flush=True)
+"""
+
+
+def example_limits(name: str, r: dict) -> dict:
+    """The reference script's PASS limits on an example's main() dict."""
+    if name == "torch_e2e_gps_l1":
+        return {"PRN 7 alone detected": r["detected_prns"] == [7],
+                "ephemeris bit-exact": r["ephemeris_bit_exact"] is True,
+                "TOW 44400 x 6 s": r["tow_s"] == 44400 * 6}
+    if name == "torch_e2e_position_fix":
+        return {"mean 3D error < 20 m": r["valid_epochs"] > 0
+                and r["mean_3d_err_m"] < 20.0}
+    if name == "torch_e2e_glonass_fix":
+        return {"mean 3D error < 25 m": r["valid_epochs"] > 0
+                and r["mean_3d_err_m"] < 25.0}
+    if name == "torch_e2e_joint_fix":
+        return {"neither system alone fixes":
+                r["alone_fixes"] == [False, False],
+                ">= 8 of 10 epochs valid": r["valid_epochs"] >= 8,
+                "mean 3D error < 30 m": r["mean_3d_err_m"] < 30.0,
+                "inter-system bias std < 15 m":
+                    r["inter_sys_bias_std_m"] < 15.0}
+    if name == "torch_e2e_multichip":
+        return {"a live PRN": bool(r["live_prns"]),
+                "state Sharded on the mesh, a part per shard":
+                    r["state_parts"] is not None
+                    and len(r["state_parts"]) == r["n_devices"]}
+    raise ValueError(f"no example {name!r}")
+
+
+def example_outcome(name: str, r: dict) -> str:
+    """The example's decode outcome or fix error, for its line."""
+    if name == "torch_e2e_gps_l1":
+        return (f"PRN {r['detected_prns']}, ephemeris bit-exact "
+                f"{r['ephemeris_bit_exact']}, TOW {r['tow_s']:g} s")
+    if name == "torch_e2e_joint_fix":
+        return (f"{r['valid_epochs']}/{r['epochs']} epochs, mean 3D error "
+                f"{r['mean_3d_err_m']:.4f} m, bias std "
+                f"{r['inter_sys_bias_std_m']:.4f} m")
+    if name == "torch_e2e_multichip":
+        return (f"live PRNs {r['live_prns']}, state parts "
+                f"{r['state_parts']}")
+    return (f"{r['valid_epochs']} epochs, mean 3D error "
+            f"{r['mean_3d_err_m']:.4f} m, max {r['max_3d_err_m']:.4f} m")
+
+
+def example_run(name: str) -> dict:
+    """Phase 39 for one example: examples/NAME.py on the card in a fresh
+    python3 process through EXAMPLE_BOOT, killed after EXAMPLE_TIMEOUT_S;
+    its record with the reference's limits and the checks every example
+    shares as 'checks'. A timeout, a non-zero exit or a missing result
+    line raises."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(repo, "examples", name + ".py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-c", EXAMPLE_BOOT, path,
+                               "cuda"], cwd=repo, env=env,
+                              capture_output=True, text=True,
+                              timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"{name}: no result within "
+                             f"{EXAMPLE_TIMEOUT_S} s") from e
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    tagged = [ln for ln in lines if ln.startswith(EXAMPLE_TAG)]
+    if proc.returncode or not tagged:
+        raise AssertionError(
+            f"{name}: exit {proc.returncode}, no result line | stdout "
+            f"{proc.stdout[-2000:]!r} | stderr {proc.stderr[-3000:]!r}")
+    rec = json.loads(tagged[-1][len(EXAMPLE_TAG):])
+    rec["process_wall_s"] = wall
+    rec["last_printed"] = [ln for ln in lines
+                           if not ln.startswith(EXAMPLE_TAG)][-1]
+    launches = rec["launches"]
+    checks = example_limits(name, rec["result"])
+    checks["PASS printed"] = (rec["last_printed"] == "OK"
+                              or "PASS" in rec["last_printed"])
+    checks["K1 launched, K2 and K3 not"] = (
+        launches["track_chunk_fused"] > 0
+        and launches["track_chunk_boc_fused"] == 0
+        and launches["track_chunk_dual_fused"] == 0)
+    checks["no jax or gnsstpu module loaded"] = not rec["refused_modules"]
+    return checked(rec, checks)
+
+
 def main() -> int:
     t_start = time.time()
     # 1. Device.
@@ -3843,8 +3987,23 @@ def main() -> int:
     print(f"[38 gps_glonass_joint_fix_6ch] {json.dumps(jres)}", flush=True)
     raise_failed("gps_glonass_joint_fix_6ch", jres)
 
-    # 18. K1's launches on each path in this process (the CLI's run in
-    # its own process, uncounted; bench's in this one).
+    # 39. The five end-to-end examples, each in a fresh process on the
+    # card that refuses jax, jaxlib and gnsstpu.
+    exres = {}
+    for ex in EXAMPLES:
+        r = exres[ex] = example_run(ex)
+        res39 = r["result"]
+        print(f"[39 {ex}] {'PASS' if all(r['checks'].values()) else 'FAIL'}"
+              f" | wall {r['process_wall_s']:.2f} s (main "
+              f"{r['main_wall_s']:.2f} s) | signal {res39['signal_s']:g} s,"
+              f" {res39['signal_s'] / r['main_wall_s']:.2f} x real time | "
+              f"{example_outcome(ex, res39)} | K1 launches "
+              f"{r['launches']['track_chunk_fused']} | {json.dumps(r)}",
+              flush=True)
+        raise_failed(ex, r)
+
+    # 18. K1's launches on each path (the examples' in their own
+    # processes, read back; the CLI's uncounted; bench's in this one).
     k1_paths = {"gps_l1_live_12ch": res["k1_launches"],
                 "gps_l1_live_12ch_mesh2": mres["k1_launches"],
                 "beidou_b1i_live_12ch": bres["k1_launches"],
@@ -3857,6 +4016,8 @@ def main() -> int:
                 "gps_l1_gp2021_cosim_12ch": k1_cosim,
                 "bench": bench_res["k1_launches"],
                 "gps_glonass_joint_fix_6ch": jres["launches"]}
+    k1_paths.update({ex: r["launches"]["track_chunk_fused"]
+                     for ex, r in exres.items()})
     print(f"[18 K1 launches by path] {json.dumps(k1_paths)} | K2: "
           f"galileo_e1b_live_12ch {gres['k2_launches']}, "
           f"galileo_e1b_solve_5ch {gsres['launches']}, "
