@@ -21,7 +21,8 @@ from gnsstpu_torch.native import cosim
 from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.sources import SimSource
 from gnsstpu_torch.sim import IFSimulator, SatParams
-from torch_port import one_torch_thread_per_worker  # noqa: F401
+from torch_port import (  # noqa: F401
+    one_torch_thread_per_worker, reference_native_library)
 
 SIG = SignalConfig(if_freq=0.0, fs=cosim.FS, complex_iq=True)
 

@@ -25,7 +25,8 @@ from gnsstpu_torch.ops import unpack as tup
 from gnsstpu_torch.ops import wire
 from gnsstpu_torch.runtime import sources as tsrc
 from gnsstpu_torch.signals.gps_l1ca import generate_ca_code
-from torch_port import one_torch_thread_per_worker  # noqa: F401
+from torch_port import (  # noqa: F401
+    one_torch_thread_per_worker, reference_native_library)
 
 # 2**18 samples take the codecs' threaded path (threads split n >= 2**16).
 SIZES = (1000, 1 << 18)

@@ -23,7 +23,8 @@ from gnsstpu_torch.ops import resample as trs
 from gnsstpu_torch.runtime import sources as tsrc
 from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.telemetry import Telemetry
-from torch_port import one_torch_thread_per_worker, to_port  # noqa: F401
+from torch_port import (  # noqa: F401
+    one_torch_thread_per_worker, reference_native_library, to_port)
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 #: (fs_in, fs_out): the GN3S front end and the custom MAX2769 front end

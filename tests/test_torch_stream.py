@@ -28,7 +28,8 @@ from gnsstpu_torch import native as tnative
 from gnsstpu_torch.runtime import sources as tsrc
 from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.telemetry import Telemetry
-from torch_port import one_torch_thread_per_worker, to_port  # noqa: F401
+from torch_port import (  # noqa: F401
+    one_torch_thread_per_worker, reference_native_library, to_port)
 
 SIG = SignalConfig(if_freq=0.0, fs=2.048e6, complex_iq=True)
 JOIN_S = 30.0

@@ -1,8 +1,11 @@
 """Helpers shared by the port's tests (tests/test_torch_*.py)."""
 
+import ctypes
 import dataclasses
+import fcntl
 import importlib
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -41,6 +44,70 @@ def one_torch_thread_per_worker():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def reference_native():
+    """gnsstpu.native with the reference's library loaded, or a failed
+    test: never a skip, never its NumPy fallbacks.
+
+    The reference builds native/libgnsstpu_native.so with `make` at first
+    use, linking straight onto that path, and remembers a failed load for
+    the life of the process. Under pytest-xdist every worker imports the
+    reference's tests, three of which ask for the library at collection,
+    so on a fresh checkout the workers run that `make` at once, and a
+    worker that met a half-written file keeps its failure. Every such
+    build has ended before the first test runs, so this clears the memo
+    and loads again. If the file still does not load, it builds it once
+    more under a lock that the processes share (build/ beside native/),
+    to a temporary name that then replaces the library, and loads that.
+    The paths come from the module, so a test can point it at a copy."""
+    from gnsstpu import native
+
+    if native.available():
+        return native
+    lock_dir = os.path.join(os.path.dirname(native._NATIVE_DIR), "build")
+    os.makedirs(lock_dir, exist_ok=True)
+    with open(os.path.join(lock_dir, "reference_native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(native._LIB_PATH) and _load_again(native):
+            return native
+        tmp = f"{native._LIB_PATH}.{os.getpid()}.tmp"
+        try:
+            run = subprocess.run(
+                ["make", "-C", native._NATIVE_DIR, f"OUT={tmp}"],
+                capture_output=True, text=True, timeout=300)
+            if run.returncode == 0:
+                os.replace(tmp, native._LIB_PATH)
+                if _load_again(native):
+                    return native
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    why = f"`make` exited {run.returncode}"
+    if run.returncode == 0:
+        try:
+            ctypes.CDLL(native._LIB_PATH)
+            why = "built, but gnsstpu.native still does not load it"
+        except OSError as e:
+            why = f"built, but it does not load: {e}"
+    pytest.fail(f"the reference's native library {native._LIB_PATH}: "
+                f"{why}\n--- make's stdout\n{run.stdout}"
+                f"--- make's stderr\n{run.stderr}", pytrace=False)
+
+
+def _load_again(native) -> bool:
+    """Clear gnsstpu.native's memo of its load and load the library."""
+    with native._lock:
+        native._lib, native._tried = None, False
+    return native.available()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_native_library():
+    """Test modules that run the reference's native library (its ring
+    FIFO, golden model or codecs) beside the port's import this fixture:
+    it loads that library before the module's first test, or fails."""
+    return reference_native()
 
 
 def nav_record(sig, sats, n_ms, seed):
