@@ -12,8 +12,8 @@ Mirrors `python -m gnsstpu` (gnsstpu/cli.py) on a CUDA device (or
             docs/RADIO_FRONTEND.md); optionally with the online navigator
             (--navigate), a JSONL telemetry log (--log), a station server
             that fans the telemetry out and takes commands over TCP
-            (--station-port), a torch.profiler trace (--profile) and a
-            checkpoint of the channel bank (--checkpoint / --resume),
+            (--station-port), a torch.profiler trace with the program's
+            phases and their spans (--profile) and a checkpoint of the channel bank (--checkpoint / --resume),
             sharded over a device mesh (--mesh channel=N: the family's
             kernel once per shard, on the --device given)
   solve     the offline chain to a position fix over an IF file
@@ -181,20 +181,34 @@ class _MergedBus:
 
 
 def _run_profiled(mgr, n_ms: int, out_dir: str):
-    """mgr.run under torch.profiler (host ops, and the device's kernels
-    on a card), written to out_dir/trace.json as a Chrome trace."""
+    """mgr.run under torch.profiler (host ops of every thread, and the
+    device's kernels on a card), written to out_dir/trace.json as a
+    Chrome trace."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if mgr.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    # The manager's reader and fetch threads too, not only this one.
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=acts, experimental_config=every_thread) as prof:
         recs = mgr.run(n_ms)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"profiler trace: {path}", file=sys.stderr, flush=True)
     return recs
+
+
+def _write_spans(spans: list, out_dir: str) -> None:
+    """The program's span records, one JSON line each, to
+    out_dir/spans.jsonl."""
+    path = os.path.join(out_dir, "spans.jsonl")
+    with open(path, "w") as f:
+        for rec in spans:
+            f.write(json.dumps(rec) + "\n")
+    print(f"spans: {path}", file=sys.stderr, flush=True)
 
 
 def cmd_track(args) -> int:
@@ -221,7 +235,7 @@ def cmd_track(args) -> int:
         if args.commands:
             from gnsstpu_torch.runtime.console import CommandBus
             bus = CommandBus(args.commands)
-        tlm = Telemetry(sink=sink)
+        tlm = Telemetry(sink=sink, trace=bool(args.profile))
         if args.station_port is not None:
             # Remote station transport: telemetry fans out over TCP and
             # station commands ride the same socket back (`monitor
@@ -271,6 +285,7 @@ def cmd_track(args) -> int:
             mgr.restore_checkpoint(args.resume)
         if args.profile:
             recs = _run_profiled(mgr, args.ms, args.profile)
+            _write_spans(tlm.spans, args.profile)
         else:
             recs = mgr.run(args.ms)
         if args.checkpoint:
@@ -531,7 +546,9 @@ def main(argv=None) -> int:
                    choices=["lsq", "ekf"])
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace (Chrome JSON) to "
-                        "DIR/trace.json")
+                        "DIR/trace.json, the program's phases in it as "
+                        "gnss.* ranges, and their spans to "
+                        "DIR/spans.jsonl")
     p.add_argument("--commands", default=None,
                    help="JSONL command file polled each epoch "
                         "(drop/mask/unmask/set/stop)")

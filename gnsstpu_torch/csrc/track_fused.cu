@@ -755,6 +755,8 @@ cudaError_t prepare(const void* fn, int blkp, int* W, size_t* bytes) {
 // stamps: null for the main path's instance; else int64 [C, 7] receives
 // the STAMPS instance's cycles per phase, summed over blocks (P_* order:
 // the window warp's and the first angle thread's, then thread 0's chain).
+// start_event: null, or a CUDA event recorded on the stream just before
+// the launch, after the host's preparation (a timing event pair's start).
 extern "C" int track_chunk_fused_cuda(
     const float* chunk, long long n_samples, const int8_t* tab,
     const int* pos0, const float* finit, const long long* cinit,
@@ -764,7 +766,7 @@ extern "C" int track_chunk_fused_cuda(
     float nco_scale, float ph, float row_off_e, float row_off_p,
     float row_off_l, float ang_scale, float inv_pi, float inv_2pi, float k1,
     float k2, float k3, float c_dll_p, float c_dll_i, int fll_atan,
-    void* stream) {
+    void* stream, void* start_event) {
   const void* fn = stamps ? (const void*)&track_fused_kernel<true>
                           : (const void*)&track_fused_kernel<false>;
   if (blkp < 1 || blkp > ctrack::MAX_BLKP || R < 1 || C < 0 || n_blocks < 0)
@@ -803,6 +805,10 @@ extern "C" int track_chunk_fused_cuda(
                   (void*)&finit,  (void*)&cinit,   (void*)&carrbase,
                   (void*)&out,    (void*)&ffin,    (void*)&pos_out,
                   (void*)&cph_out, (void*)&stamps, (void*)&p};
+  if (start_event != nullptr) {
+    err = cudaEventRecord((cudaEvent_t)start_event, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   err = cudaLaunchKernel(fn, dim3((unsigned)C), dim3((unsigned)THREADS),
                          args, bytes, (cudaStream_t)stream);
   const cudaError_t last = cudaGetLastError();

@@ -49,7 +49,9 @@ samples.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -101,6 +103,24 @@ LAUNCHES = {"track_chunk_fused": 0, "track_chunk_boc_fused": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_TIMING = threading.local()
+
+
+@contextlib.contextmanager
+def timed_launches(events):
+    """Within the block, each K1 launch made on this thread appends a
+    pair of timing CUDA events, recorded on its stream just before the
+    kernel is launched (by the C entry) and after, to events (a list);
+    events None times nothing. Read elapsed_time only once work queued
+    behind the launches has completed."""
+    prev = getattr(_TIMING, "events", None)
+    _TIMING.events = events
+    try:
+        yield
+    finally:
+        _TIMING.events = prev
 
 
 #: Most CTAs in one of K2's / K3's clusters (the portable cluster size).
@@ -287,7 +307,7 @@ def _lib():
     if not fn.argtypes:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 5
-                       + [fl] * 15 + [i, p])
+                       + [fl] * 15 + [i, p, p])
         fn.restype = ctypes.c_int
         info = built.lib.track_fused_info
         info.argtypes = [i, p]
@@ -345,9 +365,12 @@ def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
                   n_blocks: int, blkp: int, code_length: int,
                   phases_per_chip: int, spacing: float, span_chips: float,
                   base_code_step: float, fs: float, coefs,
-                  fll_disc: str = "atan2"):
+                  fll_disc: str = "atan2", events=None):
     """One launch of K1 (its stamped instance when stamps is not None)
-    on CUDA tensors already checked; returns (out, ffin, pos, cphase)."""
+    on CUDA tensors already checked; returns (out, ffin, pos, cphase).
+    events: a list that gets a pair of timing events on the launch's
+    stream: the first recorded (again) by the C entry just before the
+    launch, after the host's preparation of it, the second after it."""
     dev = chunk.device
     if chunk.data_ptr() % 8:
         raise ValueError("chunk must be 8-byte aligned")
@@ -364,7 +387,14 @@ def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
     # The C entry sets the kernel's attributes on the current device and
     # launches on the stream given: both must be the tensors' card.
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cur = torch.cuda.current_stream(dev)
+        stream = cur.cuda_stream
+        start = None
+        if events is not None:
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record(cur)          # creates the event the C entry uses
+            start = pair[0].cuda_event
         rc = built.lib.track_chunk_fused_cuda(
             chunk.data_ptr(), chunk.shape[0], tab.data_ptr(),
             pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
@@ -375,7 +405,10 @@ def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
             k["base_code_step"], k["inv_fs"], k["nco_scale"], k["ph"],
             *k["row_off"], k["ang_scale"], k["inv_pi"], k["inv_2pi"],
             k["k1"], k["k2"], k["k3"], k["c_dll_p"], k["c_dll_i"],
-            int(_fll_atan(fll_disc)), stream)
+            int(_fll_atan(fll_disc)), stream, start)
+        if events is not None:
+            pair[1].record(cur)
+            events.append(pair)
     if rc != 0:
         msg = built.lib.track_fused_error_string(rc).decode()
         raise RuntimeError(f"track_chunk_fused launch failed: {msg} ({rc})")
@@ -393,7 +426,8 @@ def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
     Dtypes and shapes are checked on every device (blkp <= MAX_BLKP, tab
     int8 [C, R, plane_stride(blkp)]). CPU tensors then run the plain
     twin; CUDA tensors launch the kernel (on torch.cuda.current_stream())
-    or raise.
+    or raise. Inside timed_launches the launch is bracketed by timing
+    events.
     """
     kw = dict(n_blocks=n_blocks, blkp=blkp, code_length=code_length,
               phases_per_chip=phases_per_chip, spacing=spacing,
@@ -407,7 +441,8 @@ def track_chunk_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
                                      carrbase, **kw)
     if dev.type != "cuda":
         raise ValueError(f"track_chunk_fused: unsupported device {dev}")
-    res = _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, None, **kw)
+    res = _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, None,
+                        events=getattr(_TIMING, "events", None), **kw)
     LAUNCHES["track_chunk_fused"] += 1
     return res
 

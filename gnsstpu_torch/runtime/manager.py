@@ -40,6 +40,17 @@ i // (C / N), each superepoch epoch runs the engine's step on every shard
 on the mesh's first device, where the lock summary, the readback, the
 on-chunk search and the weak tier run as without a mesh. Records and
 prompt streams are bit-identical to the unsharded manager's.
+
+Every host phase is a span on the telemetry (Telemetry.span), keyed by
+its superepoch (se: the epoch_ms of its first epoch), and the task_health
+walls are the spans' walls. The supervision thread: superepoch (dispatch
+to the end of its supervision, a record only), feed.wait, dispatch (with
+acq.chunk_search), harvest.wait (pipelined) or readback, supervise (per
+epoch nav.poll, history.trim), acq.finish, acq.host_search, and
+manager.build in the constructor; the reader thread (gnss-feed):
+feed.read, feed.upload; the fetch thread (gnss-fetch):
+fetch.device_wait, fetch.decode. With tracing on, K1's launches carry
+CUDA timing events, summed into the superepoch span's k1_device_ns.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ from gnsstpu_torch.acquisition.search import (
     AcqResults, _windows_of, acq_samples_needed, acquire, acquire_fdma,
     code_fd_tensor, fdma_grid, refine_doppler)
 from gnsstpu_torch.device import U32_MASK, resolve_device
-from gnsstpu_torch.ops import fft_acquire
+from gnsstpu_torch.ops import fft_acquire, track_kernel
 from gnsstpu_torch.ops import unpack as up
 from gnsstpu_torch.parallel.mesh import (Sharded, replicate, shard_rows,
                                          to_device, tree_map)
@@ -116,9 +127,12 @@ class _Readback:
             tensors = host
         self._tensors = tensors
 
-    def numpy(self) -> list:
+    def wait(self) -> None:
         if self._event is not None:
             self._event.synchronize()
+
+    def numpy(self) -> list:
+        self.wait()
         return [t.numpy() for t in self._tensors]
 
 
@@ -135,9 +149,11 @@ class _Inflight:
     acq_host: bool
     buf: object
     n_active: int
-    t_read: float
-    t_up: float
-    t_disp: float
+    read: object              # spans: the chunk's read and upload,
+    upload: object
+    dispatch: object          # the dispatch,
+    span: object              # the superepoch (open until supervised)
+    k1_events: Optional[list] = None   # K1's timing events (tracing on)
     fetch: object = None
     acq_base: int = 0
 
@@ -152,8 +168,16 @@ class _Chunk:
     dev: object               # device f32 [chunk_len, 2] or None if ended
     ended: bool
     need_len: int
-    t_read: float
-    t_up: float
+    read: object              # spans of the read and the upload
+    upload: object
+
+
+def _host_bytes(buf) -> int:
+    """Bytes of a chunk read into host memory (0 for one the source
+    already holds on the device)."""
+    if isinstance(buf, torch.Tensor):
+        return buf.nbytes if buf.device.type == "cpu" else 0
+    return np.asarray(buf).nbytes
 
 
 def _rows_map(state, fn):
@@ -254,64 +278,66 @@ class ChannelManager:
         self.warm_visible: Optional[set] = None
         self.warm_known: set = set()
 
-        if wire == "auto":
-            wire = (getattr(source, "wire_format", None)
-                    if hasattr(source, "read_packed") else None)
-        self.wire = wire                       # None = plain array reads
+        with self.tlm.span("manager.build"):
+            if wire == "auto":
+                wire = (getattr(source, "wire_format", None)
+                        if hasattr(source, "read_packed") else None)
+            self.wire = wire                   # None = plain array reads
 
-        self.slots = [Slot() for _ in range(C)]
-        spc = self.sig.samples_per_code
-        self.eng = make_engine(cfg, engine, mesh=mesh)
-        self.engine = self.eng.name
-        if epoch_ms % self.eng.period_ms:
-            raise ValueError(
-                f"epoch_ms {epoch_ms} not a multiple of the signal's "
-                f"code period {self.eng.period_ms} ms")
-        self._bpe = epoch_ms // self.eng.period_ms   # blocks per epoch
-        self._bank = self.eng.new_bank(C)
-        self._state = self._shard(self.eng.init_state(C, self.device))
-        self._bank_dev = None
-        self._abs_pos = np.zeros(C, np.float64)    # per-slot next sample
-        self._cursor = 0                           # epoch base sample
-        self._next_reacq_ms = 0
-        self._clock_epochs = 0
-        self._drift_margin = _drift_margin(self.sig, epoch_ms,
-                                           self.sync_every, self.prefetch,
-                                           spread_budget_s)
-        if history_window_ms is None:
-            try:
-                unbounded = len(source) >= 2 ** 61
-            except TypeError:      # no __len__: endless by contract
-                unbounded = True
-            if unbounded:
-                history_window_ms = 36_000
-        self.history_window_ms = history_window_ms
-        self.records: List[EpochRecord] = []
-        self.history: Dict[int, dict] = {}
-        self._summarize = self._make_summarize()
-        self._acq_chunk_fn = None
-        self._acq_offs = None       # FDMA channel offsets (_acq_grid)
-        self._acq_doppler = None    # Doppler grid of the on-chunk search
-        # Weak tier: a noncoherent search longer than one chunk sums its
-        # power cube [num_prn, D, spc] on the device across chunks.
-        self._acq_wk = None         # {"cube", "done", "base0"}
-        self._acq_wk_fns = False    # lazy (accum, finish, B, B_c, need)
-        espc = self._bpe * spc
-        self._espc = espc
-        self._win_len = espc + spc + self._drift_margin + 2
-        self._chunk_len = self.chunk_samples(
-            self.sig, epoch_ms, sync_every=self.sync_every,
-            prefetch=self.prefetch, wire=self.wire,
-            spread_budget_s=spread_budget_s)
-        engine_step = self.eng.make_step(self._bpe)
+            self.slots = [Slot() for _ in range(C)]
+            spc = self.sig.samples_per_code
+            self.eng = make_engine(cfg, engine, mesh=mesh)
+            self.engine = self.eng.name
+            if epoch_ms % self.eng.period_ms:
+                raise ValueError(
+                    f"epoch_ms {epoch_ms} not a multiple of the signal's "
+                    f"code period {self.eng.period_ms} ms")
+            self._bpe = epoch_ms // self.eng.period_ms   # blocks per epoch
+            self._bank = self.eng.new_bank(C)
+            self._state = self._shard(self.eng.init_state(C, self.device))
+            self._bank_dev = None
+            self._abs_pos = np.zeros(C, np.float64)  # per-slot next sample
+            self._cursor = 0                         # epoch base sample
+            self._next_reacq_ms = 0
+            self._clock_epochs = 0
+            self._drift_margin = _drift_margin(
+                self.sig, epoch_ms, self.sync_every, self.prefetch,
+                spread_budget_s)
+            if history_window_ms is None:
+                try:
+                    unbounded = len(source) >= 2 ** 61
+                except TypeError:      # no __len__: endless by contract
+                    unbounded = True
+                if unbounded:
+                    history_window_ms = 36_000
+            self.history_window_ms = history_window_ms
+            self.records: List[EpochRecord] = []
+            self.history: Dict[int, dict] = {}
+            self._summarize = self._make_summarize()
+            self._acq_chunk_fn = None
+            self._acq_offs = None       # FDMA channel offsets (_acq_grid)
+            self._acq_doppler = None    # on-chunk search's Doppler grid
+            # Weak tier: a noncoherent search longer than one chunk sums
+            # its power cube [num_prn, D, spc] on the device across chunks.
+            self._acq_wk = None         # {"cube", "done", "base0"}
+            self._acq_wk_fns = False    # lazy (accum, finish, B, B_c, need)
+            espc = self._bpe * spc
+            self._espc = espc
+            self._win_len = espc + spc + self._drift_margin + 2
+            self._chunk_len = self.chunk_samples(
+                self.sig, epoch_ms, sync_every=self.sync_every,
+                prefetch=self.prefetch, wire=self.wire,
+                spread_budget_s=spread_budget_s)
+            engine_step = self.eng.make_step(self._bpe)
 
-        def step_epoch(win, bank, state):
-            state, obs = engine_step(win, bank, state)
-            state = _rows_map(state, lambda s, _: s._replace(
-                corr=s.corr._replace(sample_pos=s.corr.sample_pos - espc)))
-            return state, obs
+            def step_epoch(win, bank, state):
+                state, obs = engine_step(win, bank, state)
+                state = _rows_map(state, lambda s, _: s._replace(
+                    corr=s.corr._replace(
+                        sample_pos=s.corr.sample_pos - espc)))
+                return state, obs
 
-        self._step_epoch = step_epoch
+            self._step_epoch = step_epoch
 
     @staticmethod
     def chunk_samples(sig: SignalConfig, epoch_ms: int, *,
@@ -929,6 +955,7 @@ class ChannelManager:
     def _run_superepoch(self, e0: int, k: int) -> bool:
         """Process k supervision epochs in one device round trip.
         Returns False to stop (end of data / commanded stop)."""
+        tlm = self.tlm
         epoch_ms0 = e0 * self.epoch_ms
         if self.commands is not None:
             self._apply_commands(epoch_ms0)
@@ -939,10 +966,9 @@ class ChannelManager:
                   if s.state is not SlotState.IDLE]
         acq_due = epoch_ms0 >= self._next_reacq_ms
         if acq_due and not active:
-            t0 = time.perf_counter()
-            self._try_acquire(epoch_ms0)
-            self.tlm.task_health(epoch_ms0, "acquire",
-                                 time.perf_counter() - t0)
+            with tlm.span("acq.host_search", se=epoch_ms0) as acq:
+                self._try_acquire(epoch_ms0)
+            tlm.task_health(epoch_ms0, "acquire", acq.wall_s)
             self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
             acq_due = False
             active = [i for i, s in enumerate(self.slots)
@@ -959,9 +985,9 @@ class ChannelManager:
             if s.state is SlotState.IDLE:
                 self._abs_pos[i] = base
 
-        t_read0 = time.perf_counter()
         try:
-            buf, ended, need_len = self._read_superepoch(base, k)
+            with tlm.span("feed.read", se=epoch_ms0) as read:
+                buf, ended, need_len = self._read_superepoch(base, k)
         except TimeoutError:
             if self._recover_stall(epoch_ms0):
                 return True
@@ -983,72 +1009,79 @@ class ChannelManager:
             self._cursor = base + k * self._espc
             return True
 
-        t_up0 = time.perf_counter()
-        chunk_dev = self._to_device(buf)
-        if self._bank_dev is None:
-            self._bank_dev = self._bank_to_device()
-        state = _rows_map(self._state, lambda s, r: s._replace(
-            corr=s.corr._replace(sample_pos=torch.as_tensor(
-                rel[r].astype(np.int32), device=s.corr.sample_pos.device))))
-        t_disp0 = time.perf_counter()
-        outs = []
-        for win in self._epoch_windows(chunk_dev, k):
-            state, obs = self._step_epoch(win, self._bank_dev, state)
-            outs.append(self._summarize(obs, float(self.cn0_drop)))
-        self._state = state
+        with tlm.span("feed.upload", se=epoch_ms0,
+                      bytes=_host_bytes(buf)) as upload:
+            chunk_dev = self._to_device(buf)
+            if self._bank_dev is None:
+                self._bank_dev = self._bank_to_device()
+            state = _rows_map(self._state, lambda s, r: s._replace(
+                corr=s.corr._replace(sample_pos=torch.as_tensor(
+                    rel[r].astype(np.int32),
+                    device=s.corr.sample_pos.device))))
+        sup = tlm.open_span("superepoch", se=epoch_ms0)
+        k1_events = [] if tlm.trace else None
+        with tlm.span("dispatch", se=epoch_ms0, k=k,
+                      n_active=len(active)) as disp:
+            outs = []
+            with track_kernel.timed_launches(k1_events):
+                for win in self._epoch_windows(chunk_dev, k):
+                    state, obs = self._step_epoch(win, self._bank_dev,
+                                                  state)
+                    outs.append(self._summarize(obs, float(self.cn0_drop)))
+            self._state = state
 
-        acq_fut = None
-        acq_base = base
-        acq_host_fallback = False
-        want = self._want_prns()
-        have_idle = any(s.state is SlotState.IDLE for s in self.slots)
-        if (acq_due or self._acq_wk is not None) and want and have_idle:
-            lanes, acq_base, host = self._chunk_search(chunk_dev, base,
-                                                       need_len)
-            if lanes is not None:
-                acq_fut = _Readback([lanes])
-            acq_host_fallback = host and acq_due
-        elif not (want and have_idle):
-            self._acq_wk = None
-        if acq_due:
-            self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
+            acq_fut = None
+            acq_base = base
+            acq_host_fallback = False
+            want = self._want_prns()
+            have_idle = any(s.state is SlotState.IDLE for s in self.slots)
+            if (acq_due or self._acq_wk is not None) and want and have_idle:
+                with tlm.span("acq.chunk_search"):
+                    lanes, acq_base, host = self._chunk_search(
+                        chunk_dev, base, need_len)
+                if lanes is not None:
+                    acq_fut = _Readback([lanes])
+                acq_host_fallback = host and acq_due
+            elif not (want and have_idle):
+                self._acq_wk = None
+            if acq_due:
+                self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
 
-        t_rb0 = time.perf_counter()
-        streams, stats = self._decode_readback(
-            _Readback(self._pack_epochs(outs)).numpy())
-        outs = [(streams[j], stats[j]) for j in range(k)]
-        if acq_fut is not None:
-            acq_fut = acq_fut.numpy()[0]
-        t_rb1 = time.perf_counter()
-        self.tlm.task_health(epoch_ms0, "track", t_rb0 - t_disp0,
-                             engine=self.engine, n_active=len(active),
-                             sync_every=k)
-        self.tlm.task_health(epoch_ms0, "upload", t_disp0 - t_up0,
-                             wire=self.wire or "array",
-                             read_s=round(t_up0 - t_read0, 4))
-        self.tlm.task_health(epoch_ms0, "readback", t_rb1 - t_rb0)
+        with tlm.span("readback", se=epoch_ms0) as rb:
+            (streams, stats), acq_fut, k1 = self._materialize(
+                _Readback(self._pack_epochs(outs)), acq_fut, epoch_ms0,
+                k1_events)
+            outs = [(streams[j], stats[j]) for j in range(k)]
+        tlm.task_health(epoch_ms0, "track", disp.wall_s,
+                        engine=self.engine, n_active=len(active),
+                        sync_every=k)
+        tlm.task_health(epoch_ms0, "upload", upload.wall_s,
+                        wire=self.wire or "array",
+                        read_s=round(read.wall_s, 4))
+        tlm.task_health(epoch_ms0, "readback", rb.wall_s)
         if hasattr(self.source, "stats"):
-            self.tlm.task_health(epoch_ms0, "source", 0.0,
-                                 **self.source.stats())
+            tlm.task_health(epoch_ms0, "source", 0.0,
+                            **self.source.stats())
 
-        t_sup0 = time.perf_counter()
-        pos = base + rel.astype(np.float64)
-        pos = self._supervise_block([o[0] for o in outs],
-                                    [o[1] for o in outs], pos, e0)
-        self._abs_pos = pos
-        self._cursor = base + k * self._espc
-        self._last_progress = time.monotonic()
-        self.tlm.task_health(epoch_ms0, "assess",
-                             time.perf_counter() - t_sup0)
+        with tlm.span("supervise", se=epoch_ms0) as sv:
+            pos = base + rel.astype(np.float64)
+            pos = self._supervise_block([o[0] for o in outs],
+                                        [o[1] for o in outs], pos, e0)
+            self._abs_pos = pos
+            self._cursor = base + k * self._espc
+            self._last_progress = time.monotonic()
+        tlm.task_health(epoch_ms0, "assess", sv.wall_s)
 
         if acq_fut is not None:
-            self._finish_chunk_acq(acq_fut, want, acq_base,
-                                   (e0 + k) * self.epoch_ms)
+            with tlm.span("acq.finish", se=epoch_ms0):
+                self._finish_chunk_acq(acq_fut, want, acq_base,
+                                       (e0 + k) * self.epoch_ms)
         elif acq_host_fallback:
-            t0 = time.perf_counter()
-            self._try_acquire((e0 + k) * self.epoch_ms)
-            self.tlm.task_health((e0 + k) * self.epoch_ms, "acquire",
-                                 time.perf_counter() - t0)
+            with tlm.span("acq.host_search", se=epoch_ms0) as acq:
+                self._try_acquire((e0 + k) * self.epoch_ms)
+            tlm.task_health((e0 + k) * self.epoch_ms, "acquire",
+                            acq.wall_s)
+        tlm.close_span(sup, **k1)
         return True
 
     # --- prefetch pipeline (overlapped superepochs) ---
@@ -1079,16 +1112,18 @@ class ChannelManager:
             outs.append(self._summarize(obs, cn0_drop))
         return state, self._pack_epochs(outs)
 
-    def _prefetch_chunk(self, base: int, k: int) -> _Chunk:
-        """Read + upload one superepoch chunk (runs on the reader
-        thread)."""
-        t0 = time.perf_counter()
-        buf, ended, need_len = self._read_superepoch(base, k)
-        t1 = time.perf_counter()
-        dev = None if ended else self._to_device(buf)
+    def _prefetch_chunk(self, base: int, k: int, se: int) -> _Chunk:
+        """Read + upload one superepoch chunk (on the reader thread, or
+        on the supervision thread when the prefetch missed); se: the key
+        of the superepoch it is read for."""
+        tlm = self.tlm
+        with tlm.span("feed.read", se=se) as read:
+            buf, ended, need_len = self._read_superepoch(base, k)
+        with tlm.span("feed.upload", se=se,
+                      bytes=0 if ended else _host_bytes(buf)) as upload:
+            dev = None if ended else self._to_device(buf)
         return _Chunk(base=base, k=k, buf=buf, dev=dev, ended=ended,
-                      need_len=need_len, t_read=t1 - t0,
-                      t_up=time.perf_counter() - t1)
+                      need_len=need_len, read=read, upload=upload)
 
     def _dispatch_superepoch(self, chunk: _Chunk, k: int, e0: int,
                              delta: int, mask: np.ndarray,
@@ -1096,40 +1131,46 @@ class ChannelManager:
         """Issue one superepoch (+ a due acquisition search) against an
         uploaded chunk; device work and readback copies are async."""
         epoch_ms0 = e0 * self.epoch_ms
-        t0 = time.perf_counter()
-        if self._bank_dev is None:
-            self._bank_dev = self._bank_to_device()
-        self._state, packed = self._super_step(
-            chunk.dev, self._bank_dev, self._state, float(self.cn0_drop),
-            delta, mask, newsp, k)
-        packed = _Readback(packed)
-        acq_fut = None
-        acq_base = chunk.base
-        acq_host = False
-        want = []
-        acq_due = epoch_ms0 >= self._next_reacq_ms
-        if acq_due or self._acq_wk is not None:
-            want = self._want_prns()
-            have_idle = any(s.state is SlotState.IDLE
-                            for s in self.slots)
-            if want and have_idle:
-                lanes, acq_base, host = self._chunk_search(
-                    chunk.dev, chunk.base, chunk.need_len)
-                if lanes is not None:
-                    acq_fut = _Readback([lanes])
-                acq_host = host and acq_due
-            else:
-                self._acq_wk = None
-            if acq_due:
-                self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
-        n_active = sum(s.state is not SlotState.IDLE for s in self.slots)
+        tlm = self.tlm
+        sup = tlm.open_span("superepoch", se=epoch_ms0)
+        k1_events = [] if tlm.trace else None
+        with tlm.span("dispatch", se=epoch_ms0, k=k) as disp:
+            if self._bank_dev is None:
+                self._bank_dev = self._bank_to_device()
+            with track_kernel.timed_launches(k1_events):
+                self._state, packed = self._super_step(
+                    chunk.dev, self._bank_dev, self._state,
+                    float(self.cn0_drop), delta, mask, newsp, k)
+            packed = _Readback(packed)
+            acq_fut = None
+            acq_base = chunk.base
+            acq_host = False
+            want = []
+            acq_due = epoch_ms0 >= self._next_reacq_ms
+            if acq_due or self._acq_wk is not None:
+                want = self._want_prns()
+                have_idle = any(s.state is SlotState.IDLE
+                                for s in self.slots)
+                if want and have_idle:
+                    with tlm.span("acq.chunk_search"):
+                        lanes, acq_base, host = self._chunk_search(
+                            chunk.dev, chunk.base, chunk.need_len)
+                    if lanes is not None:
+                        acq_fut = _Readback([lanes])
+                    acq_host = host and acq_due
+                else:
+                    self._acq_wk = None
+                if acq_due:
+                    self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
+            n_active = sum(s.state is not SlotState.IDLE
+                           for s in self.slots)
+            tlm.count(n_active=n_active)
         return _Inflight(e0=e0, k=k, base=chunk.base, packed=packed,
                          acq_fut=acq_fut, acq_want=want,
                          acq_host=acq_host, buf=chunk.buf,
-                         n_active=n_active, t_read=chunk.t_read,
-                         t_up=chunk.t_up,
-                         t_disp=time.perf_counter() - t0,
-                         acq_base=acq_base)
+                         n_active=n_active, read=chunk.read,
+                         upload=chunk.upload, dispatch=disp, span=sup,
+                         k1_events=k1_events, acq_base=acq_base)
 
     def _next_base(self, active: list, la: int, k: int, det: int) -> int:
         """Base for the next chunk: follow the fleet's positions (min
@@ -1144,18 +1185,35 @@ class ChannelManager:
             return det
         return desired
 
-    def _materialize(self, p: _Inflight):
-        """Fetch-thread body: wait for the superepoch's readback copy
-        (and the search metrics) and decode it off the supervision
-        thread."""
-        streams = self._decode_readback(p.packed.numpy())
-        acq = p.acq_fut.numpy()[0] if p.acq_fut is not None else None
-        return streams, acq
+    def _materialize(self, packed: _Readback, acq_fut, se: int,
+                     k1_events: Optional[list]):
+        """Wait for a superepoch's readback copy (and the search
+        metrics) and decode it: the fetch thread's body when pipelined.
+        Returns (canonical streams, search metrics or None, the
+        superepoch span's K1 counters). K1's timing events are read once
+        the readback's event, queued behind them, has completed."""
+        tlm = self.tlm
+        with tlm.span("fetch.device_wait", se=se):
+            packed.wait()
+            if acq_fut is not None:
+                acq_fut.wait()
+        k1 = {}
+        if k1_events:
+            k1 = {"k1_launches": len(k1_events),
+                  "k1_device_ns": round(1e6 * sum(
+                      a.elapsed_time(b) for a, b in k1_events))}
+        with tlm.span("fetch.decode", se=se):
+            streams = self._decode_readback(packed.numpy())
+            acq = acq_fut.numpy()[0] if acq_fut is not None else None
+        return streams, acq, k1
 
     def _run_pipelined(self, e0: int, n_epochs: int) -> None:
         espc = self._espc
-        ex = ThreadPoolExecutor(max_workers=1)   # reader / uploader
-        fx = ThreadPoolExecutor(max_workers=1)   # readback fetcher
+        tlm = self.tlm
+        ex = ThreadPoolExecutor(max_workers=1,     # reader / uploader
+                                thread_name_prefix="gnss-feed")
+        fx = ThreadPoolExecutor(max_workers=1,     # readback fetcher
+                                thread_name_prefix="gnss-fetch")
         pend: Optional[_Inflight] = None
         nxt = None                 # Future[_Chunk] targeting self._cursor
         entry = True               # host sample_pos rebase needed
@@ -1185,10 +1243,10 @@ class ChannelManager:
                         continue
                     nxt = None
                     if epoch_ms0 >= self._next_reacq_ms:
-                        t0 = time.perf_counter()
-                        self._try_acquire(epoch_ms0)
-                        self.tlm.task_health(epoch_ms0, "acquire",
-                                             time.perf_counter() - t0)
+                        with tlm.span("acq.host_search",
+                                      se=epoch_ms0) as acq:
+                            self._try_acquire(epoch_ms0)
+                        tlm.task_health(epoch_ms0, "acquire", acq.wall_s)
                         self._next_reacq_ms = (epoch_ms0
                                                + self.reacq_period_ms)
                         active = [i for i, s in enumerate(self.slots)
@@ -1226,13 +1284,15 @@ class ChannelManager:
                     entry = False
                 base = self._cursor
                 try:
-                    if nxt is not None:
-                        chunk = nxt.result()
-                        nxt = None
-                        if chunk.base != base or chunk.k < k:
-                            chunk = self._prefetch_chunk(base, k)
-                    else:
-                        chunk = self._prefetch_chunk(base, k)
+                    with tlm.span("feed.wait", se=epoch_ms0):
+                        if nxt is not None:
+                            chunk = nxt.result()
+                            nxt = None
+                            if chunk.base != base or chunk.k < k:
+                                chunk = self._prefetch_chunk(base, k,
+                                                             epoch_ms0)
+                        else:
+                            chunk = self._prefetch_chunk(base, k, epoch_ms0)
                 except TimeoutError:
                     nxt = None
                     if self._recover_stall(epoch_ms0):
@@ -1263,14 +1323,17 @@ class ChannelManager:
                     self._pending_allocs = []
                 cur = self._dispatch_superepoch(chunk, k, e, delta, mask,
                                                 newsp)
-                cur.fetch = fx.submit(self._materialize, cur)
+                cur.fetch = fx.submit(self._materialize, cur.packed,
+                                      cur.acq_fut, epoch_ms0,
+                                      cur.k1_events)
                 self._det_base = base + k * espc
                 k_next = min(self.sync_every, n_epochs - e - k)
                 if k_next > 0:
                     la = 1 if entry_rel is not None else 2
                     nbase = self._next_base(active, la, k, self._det_base)
                     self._cursor = nbase
-                    nxt = ex.submit(self._prefetch_chunk, nbase, k_next)
+                    nxt = ex.submit(self._prefetch_chunk, nbase, k_next,
+                                    (e + k) * self.epoch_ms)
                 else:
                     self._cursor = self._det_base
                 if pend is not None:
@@ -1295,49 +1358,52 @@ class ChannelManager:
         next_base, first epoch alloc_ms). k_ahead: epochs of the
         superepoch now in flight (0 when draining)."""
         epoch_ms0 = p.e0 * self.epoch_ms
-        t0 = time.perf_counter()
-        if p.fetch is not None:
-            (streams_k, stats_k), acq = p.fetch.result()
-        else:
-            (streams_k, stats_k), acq = self._materialize(p)
-        t1 = time.perf_counter()
-        self.tlm.task_health(epoch_ms0, "track", p.t_disp,
-                             engine=self.engine, n_active=p.n_active,
-                             sync_every=p.k)
-        self.tlm.task_health(epoch_ms0, "upload", p.t_up,
-                             wire=self.wire or "array",
-                             read_s=round(p.t_read, 4))
-        self.tlm.task_health(epoch_ms0, "readback", t1 - t0)
-        if hasattr(self.source, "stats"):
-            self.tlm.task_health(epoch_ms0, "source", 0.0,
-                                 **self.source.stats())
-        self._chunk_cache = (p.base, p.buf)
-        # Slots allocated since this superepoch was dispatched start at
-        # the next one: keep their fresh positions out of its bookkeeping.
-        last_ms = (p.e0 + p.k - 1) * self.epoch_ms
-        fresh = {i: self._abs_pos[i]
-                 for i, s in enumerate(self.slots)
-                 if s.state is not SlotState.IDLE
-                 and s.started_ms > last_ms}
-        pos = self._abs_pos.copy()
-        for i, s in enumerate(self.slots):
-            if s.state is SlotState.IDLE:
-                pos[i] = p.base
-        self._alloc_log = []
-        pos = self._supervise_block(streams_k, stats_k, pos, p.e0)
-        self._abs_pos = pos
-        for i, v in fresh.items():
-            self._abs_pos[i] = v
-        self._last_progress = time.monotonic()
-        self.tlm.task_health(epoch_ms0, "assess", time.perf_counter() - t1)
+        tlm = self.tlm
+        with tlm.span("harvest.wait", se=epoch_ms0) as wait:
+            if p.fetch is not None:
+                (streams_k, stats_k), acq, k1 = p.fetch.result()
+            else:
+                (streams_k, stats_k), acq, k1 = self._materialize(
+                    p.packed, p.acq_fut, epoch_ms0, p.k1_events)
+        with tlm.span("supervise", se=epoch_ms0) as sv:
+            tlm.task_health(epoch_ms0, "track", p.dispatch.wall_s,
+                            engine=self.engine, n_active=p.n_active,
+                            sync_every=p.k)
+            tlm.task_health(epoch_ms0, "upload", p.upload.wall_s,
+                            wire=self.wire or "array",
+                            read_s=round(p.read.wall_s, 4))
+            tlm.task_health(epoch_ms0, "readback", wait.wall_s)
+            if hasattr(self.source, "stats"):
+                tlm.task_health(epoch_ms0, "source", 0.0,
+                                **self.source.stats())
+            self._chunk_cache = (p.base, p.buf)
+            # Slots allocated since this superepoch was dispatched start
+            # at the next one: keep their fresh positions out of its
+            # bookkeeping.
+            last_ms = (p.e0 + p.k - 1) * self.epoch_ms
+            fresh = {i: self._abs_pos[i]
+                     for i, s in enumerate(self.slots)
+                     if s.state is not SlotState.IDLE
+                     and s.started_ms > last_ms}
+            pos = self._abs_pos.copy()
+            for i, s in enumerate(self.slots):
+                if s.state is SlotState.IDLE:
+                    pos[i] = p.base
+            self._alloc_log = []
+            pos = self._supervise_block(streams_k, stats_k, pos, p.e0)
+            self._abs_pos = pos
+            for i, v in fresh.items():
+                self._abs_pos[i] = v
+            self._last_progress = time.monotonic()
+        tlm.task_health(epoch_ms0, "assess", sv.wall_s)
         if acq is not None:
-            self._finish_chunk_acq(acq, p.acq_want, p.acq_base, alloc_ms,
-                                   head=next_base)
+            with tlm.span("acq.finish", se=epoch_ms0):
+                self._finish_chunk_acq(acq, p.acq_want, p.acq_base,
+                                       alloc_ms, head=next_base)
         elif p.acq_host:
-            t2 = time.perf_counter()
-            self._try_acquire(alloc_ms)
-            self.tlm.task_health(alloc_ms, "acquire",
-                                 time.perf_counter() - t2)
+            with tlm.span("acq.host_search", se=epoch_ms0) as host:
+                self._try_acquire(alloc_ms)
+            tlm.task_health(alloc_ms, "acquire", host.wall_s)
         allocs = list(self._alloc_log)
         self._alloc_log = None
         self._pending_allocs.extend(allocs)
@@ -1352,6 +1418,7 @@ class ChannelManager:
                 relp = self._abs_pos[i] + adv - next_base
                 if relp < 0 or relp > self._drift_margin:
                     self._drop(i, alloc_ms, why="window_overrun")
+        tlm.close_span(p.span, **k1)
 
     # --- host supervision (the reference's, copied) ---
 
@@ -1441,11 +1508,11 @@ class ChannelManager:
                 s.bad_epochs = 0
 
         if self.navigator is not None:
-            t0 = time.perf_counter()
-            self.navigator.poll(self, epoch_ms)
-            self.tlm.task_health(epoch_ms, "pvt",
-                                 time.perf_counter() - t0)
-        self._trim_history()
+            with self.tlm.span("nav.poll") as poll:
+                self.navigator.poll(self, epoch_ms)
+            self.tlm.task_health(epoch_ms, "pvt", poll.wall_s)
+        with self.tlm.span("history.trim"):
+            self._trim_history()
 
     _HIST_LANES = ("i_p", "q_p", "carr_doppler", "abs_sample",
                    "carr_cycles", "i_p2", "q_p2")

@@ -21,7 +21,11 @@ manager through the BocEngine adapter at its 4 ms code period,
 tracking.engines; live E1 nav-under-the-manager is pinned by
 tests/test_live_families.py).
 
-Copied from gnsstpu/runtime/navigator.py; only the import prefix differs.
+The port splits each poll into spans on the manager's telemetry
+(nav.decode, nav.almanac, nav.solve) and counts decode tries,
+ephemerides decoded, epochs solved and fixes emitted on them.
+
+Copied from gnsstpu/runtime/navigator.py, with the port's spans added.
 """
 
 from __future__ import annotations
@@ -222,10 +226,14 @@ class OnlineNavigator:
                 mgr.tlm.event(epoch_ms, "live_nav_unsupported",
                               signal=self.sig.signal)
             return
-        self._try_decodes(mgr, epoch_ms)
+        tlm = mgr.tlm
+        with tlm.span("nav.decode", tries=0, ephemerides=0):
+            self._try_decodes(mgr, epoch_ms)
         if self.sig.signal == "gps_l1ca":
-            self._try_almanac(mgr, epoch_ms)
-        self._navigate(mgr, epoch_ms)
+            with tlm.span("nav.almanac"):
+                self._try_almanac(mgr, epoch_ms)
+        with tlm.span("nav.solve", epochs=0, fixes=0):
+            self._navigate(mgr, epoch_ms)
 
     def _try_almanac(self, mgr, epoch_ms: int) -> None:
         """Collect broadcast almanac + iono/UTC pages from any synced
@@ -346,6 +354,7 @@ class OnlineNavigator:
             if epoch_ms < self._next_try.get(prn, self._min_wall_ms):
                 continue
             self._next_try[prn] = epoch_ms + self.retry_ms
+            mgr.tlm.count(tries=1)
             h, ip = self._stream(mgr, prn)
             if len(ip) < self._min_idx:
                 continue
@@ -357,6 +366,7 @@ class OnlineNavigator:
             # (manager.history_window_ms bounded-memory mode).
             got = (got[0] + h.get("evicted", 0), got[1], got[2])
             self.decoded[prn] = got
+            mgr.tlm.count(ephemerides=1)
             # Headline orbit fields ride the event so operator surfaces
             # (station 'eph' page = gse gui_ephemeris) can browse them.
             eph = got[2]
@@ -499,6 +509,7 @@ class OnlineNavigator:
             n_ms=n_w,
             satpos_fn=self._fns[0], satvel_fn=self._fns[1], **ekf_kw)
         sol.t_ms += t_shift_ms
+        mgr.tlm.count(epochs=len(sol.t_ms))
         for m in sol.meas:
             m["t_ms"] += t_shift_ms
 
@@ -516,6 +527,7 @@ class OnlineNavigator:
             if not sol.valid[k] or key_of(sol.t_ms[k]) in self._emitted_t:
                 continue
             self._emitted_t.add(key_of(sol.t_ms[k]))
+            mgr.tlm.count(fixes=1)
             mgr.tlm.pvt(int(sol.t_ms[k]), float(sol.latitude[k]),
                         float(sol.longitude[k]), float(sol.height[k]),
                         int(sol.n_sats[k]),

@@ -8,9 +8,12 @@ the native library's C++ sources (the ring FIFO, the sample codecs and
 packer, the GP2021 golden model).
 Each copy is the origin verbatim except for the import prefix
 (`gnsstpu.` -> `gnsstpu_torch.` on import lines) and one docstring line
-naming the origin. test_copies_match_their_origin is the drift guard: a
-later fix in gnsstpu that is not carried over fails it. The other tests
-run both copies on the same inputs.
+naming the origin. The port extends two of them, the online navigator
+and telemetry, with its tracing spans: every line of their origin stays,
+in order (the port adds lines and may indent the origin's into blocks it
+adds). test_copies_match_their_origin is the drift guard: a later fix in
+gnsstpu that is not carried over fails it. The other tests run both
+copies on the same inputs.
 
 Neither package's copies import JAX, so this file runs both side by side
 without it.
@@ -48,16 +51,19 @@ NATIVE = (("csrc/host/ring_fifo.cpp", "native/src/ring_fifo.cpp"),
           ("csrc/host/sample_codec.cpp", "native/src/sample_codec.cpp"),
           ("csrc/host/gp2021_model.cpp", "native/src/gp2021_model.cpp"))
 
+#: Copies the port extends with its spans (the rest are verbatim).
+EXTENDED = ("runtime/navigator.py", "runtime/telemetry.py")
 NOTE = "Copied from gnsstpu/{rel}; only the import prefix differs."
+EXTENDED_NOTE = "Copied from gnsstpu/{rel}, with the port's spans added."
 _IMPORT = re.compile(r"^(\s*)(from|import)(\s+)gnsstpu\.", re.M)
 
 
-def port_copy(src: str, rel: str) -> str:
+def port_copy(src: str, rel: str, note: str = NOTE) -> str:
     """The port's copy of gnsstpu/<rel> given its source: import lines
     rewritten to gnsstpu_torch, and a note naming the origin as the last
     line of the module docstring (a new docstring where there is none)."""
     out = _IMPORT.sub(r"\1\2\3gnsstpu_torch.", src)
-    note = NOTE.format(rel=rel)
+    note = note.format(rel=rel)
     m = re.match(r'"""', out)
     if m is None:
         return f'"""{note}"""\n' + out
@@ -70,6 +76,14 @@ def port_copy(src: str, rel: str) -> str:
 def test_copies_match_their_origin(rel):
     origin = (REPO / "gnsstpu" / rel).read_text()
     copy = (REPO / "gnsstpu_torch" / rel).read_text()
+    if rel in EXTENDED:
+        have = iter(line.strip() for line in copy.splitlines())
+        lost = [line for line in port_copy(origin, rel, EXTENDED_NOTE)
+                .splitlines() if line.strip() not in have]
+        assert not lost, (
+            f"gnsstpu_torch/{rel} lost lines of gnsstpu/{rel} (first: "
+            f"{lost[0]!r}): carry the change over")
+        return
     assert copy == port_copy(origin, rel), (
         f"gnsstpu_torch/{rel} drifted from gnsstpu/{rel}: carry the change "
         "over (only the import prefix may differ)")
