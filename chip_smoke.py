@@ -55,8 +55,9 @@ the joint GPS + GLONASS fix (phase 38) and the five end-to-end examples
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: a CUDA card is required; its name and power limit;
-  2. build: the port's three CUDA kernels from the sources in this
-     checkout, one nvcc per source, started together, and K1's build
+  2. build: the port's four CUDA kernels (K1-K3 and the epoch summary)
+     from the sources in this checkout, one nvcc per source, started
+     together, and K1's build
      record (threads per CTA, registers, spill, static and dynamic shared
      memory, samples per prefetch buffer, CTAs resident per SM) at the
      blkp of GPS, BeiDou 4.096 Msps, GLONASS 8.192 Msps and GPS
@@ -76,6 +77,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the copies, products, reduction, loop update and closing barrier on
      it) at C=12 x 500 and on the floor's blocks, and the time of one
      on-chunk acquisition search;
+ 40. (printed after 4) the epoch summary kernel (ops/summary_kernel.py,
+     csrc/epoch_summary.cu) at the GPS main path's shape, K1's strided
+     out of one C=12 x 500 launch into 8 slots of a compact readback,
+     against its plain version: stream lanes bit-equal, stats within
+     SUMMARY_TOL, two fills bit-identical; us per launch and the plain
+     version's us per epoch (CUDA events, queued behind a spin) beside
+     its bound, and its build record;
   5. the GPS main path (warm-up run, then a measured run) with its
      end-to-end checks and K1's launch count;
   6. K2's build record: its cluster launch at C=12 (N CTAs per channel,
@@ -316,8 +324,8 @@ from gnsstpu_torch import (AcqConfig, NavConfig, ReceiverConfig,
                            SignalConfig, TrackConfig)
 from gnsstpu_torch.acquisition import search
 from gnsstpu_torch.bench import (GPS_CHANNELS, GPS_EPOCH_MS, GPS_SECONDS,
-                                 GPS_SYNC, gps_config, gps_manager, gps_sky,
-                                 gps_windows)
+                                 GPS_SYNC, _timed_s, gps_config,
+                                 gps_manager, gps_sky, gps_windows)
 from gnsstpu_torch.bench import GPS_SIG as SIG
 from gnsstpu_torch.bench import GPS_TRK as TRK
 from gnsstpu_torch.device import u32_numpy, u32_tensor
@@ -327,6 +335,7 @@ from gnsstpu_torch import native
 from gnsstpu_torch.native import cosim
 from gnsstpu_torch.ops import fft_acquire, nco, wire
 from gnsstpu_torch.ops import resample as rs
+from gnsstpu_torch.ops import summary_kernel as sk
 from gnsstpu_torch.ops import track_kernel as tk
 from gnsstpu_torch.ops import unpack as up
 from gnsstpu_torch.ops.resample import ResampledSource
@@ -359,6 +368,7 @@ from gnsstpu_torch.tracking import boc as tboc
 from gnsstpu_torch.tracking import dual as tdual
 from gnsstpu_torch.tracking import fused as tfused
 from gnsstpu_torch.tracking import scan as tscan
+from gnsstpu_torch.tracking.engines import EpochObs
 
 K1_SOURCE = "gnsstpu_torch/csrc/track_fused.cu"
 K1_REPLACES = "gnsstpu/ops/track_kernel.py:274"
@@ -410,6 +420,12 @@ L3_BITS = 24
 #: 2-quadrant FLL pulls a handoff error of up to half a 250 Hz bin in
 #: within ~1 s (the reference test's 50 Hz handoff settles in 200 ms).
 L3_SETTLE_MS = 1000
+SUMMARY_SOURCE = "gnsstpu_torch/csrc/epoch_summary.cu"
+#: No Pallas kernel: the reference's summary is XLA ops under jit.
+SUMMARY_REPLACES = "gnsstpu/runtime/manager.py:877 (XLA ops)"
+#: The summary kernel against its plain version: stats lanes only (the
+#: stream lanes are bit-equal); C/N0 in dB, PLL and code lock absolute.
+SUMMARY_TOL = {"cn0_dbhz": 1e-3, "pll_lock": 1e-5, "code_lock": 1e-5}
 #: H100 SXM peaks: HBM bytes/s, f32 FLOP/s.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
@@ -808,6 +824,7 @@ def gps_main_path(device, src=None, mesh=None) -> tuple:
         "ephemerides_decoded": len(navr.decoded),
         "pvt_solutions": len(coll.pvt),
         "k1_launches": launches,
+        "summary_launches": sk.LAUNCHES["epoch_summary"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -997,6 +1014,7 @@ def galileo_main_path(device, src=None, mesh=None) -> tuple:
         "mean_3d_err_m": float(np.mean(err)) if err else None,
         "k2_launches": launches["track_chunk_boc_fused"],
         "k1_launches": launches["track_chunk_fused"],
+        "summary_launches": sk.LAUNCHES["epoch_summary"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -1225,6 +1243,7 @@ def l3_main_path(device, k3_ms: float, src=None, mesh=None) -> tuple:
         "k3_share_of_wall": k3_meas * k3_ms * 1e-3 / wall,
         "k1_launches": launches["track_chunk_fused"],
         "k2_launches": launches["track_chunk_boc_fused"],
+        "summary_launches": sk.LAUNCHES["epoch_summary"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -1312,6 +1331,7 @@ def k1_family_path(device, *, sig, trk, acq, sats, sky, absent, recv,
         "k1_share_of_wall": k1_meas * k1_ms * 1e-3 / wall,
         "k2_launches": launches["track_chunk_boc_fused"],
         "k3_launches": launches["track_chunk_dual_fused"],
+        "summary_launches": sk.LAUNCHES["epoch_summary"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }, mgr
@@ -1728,6 +1748,7 @@ def gps_tcp_live_path(device, wire: np.ndarray, k1_ms: float,
         "k1_share_of_wall": k1_meas * k1_ms * 1e-3 / wall,
         "k2_launches": launches["track_chunk_boc_fused"],
         "k3_launches": launches["track_chunk_dual_fused"],
+        "summary_launches": sk.LAUNCHES["epoch_summary"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -2004,6 +2025,7 @@ def gps_resampled_path(device, k1_ms: float, seconds: float = 8.0) -> dict:
         / wall,
         "k2_launches": launches["track_chunk_boc_fused"],
         "k3_launches": launches["track_chunk_dual_fused"],
+        "summary_launches": sk.LAUNCHES["epoch_summary"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -2739,10 +2761,90 @@ def gps_mesh_path(device, src, base: dict, base_snap: dict) -> dict:
         "last_fix_err_m < 100": res.get("last_fix_err_m", 1e9) < 100.0,
         "K1 launched twice per epoch":
             res["k1_launches"] == 2 * base["k1_launches"] > 0,
+        "summary launched once per epoch":
+            res["summary_launches"] == base["summary_launches"] > 0,
         "state on the mesh": res["state_parts"] == want,
         "no jax or gnsstpu module loaded": not refused_modules(),
     }
     return checked(res, checks)
+
+
+def summary_path(device, launches: int = 400) -> dict:
+    """The epoch summary kernel at the GPS main path's shape: K1's out of
+    one C=12 x 500 launch (strided lanes), 8 epoch slots of a compact
+    readback. Against its plain version on the same tensors: the stream
+    bytes equal, the stats within SUMMARY_TOL, a second fill
+    bit-identical. Times (CUDA events, each run's launches queued behind
+    a spin so the card runs them back to back): us per kernel launch and
+    per epoch of the plain version, beside the bound (bytes). The locked
+    lane is held equal wherever the plain C/N0 and PLL lock lie further
+    than SUMMARY_TOL from cn0_drop and PLL_MIN."""
+    args, kw = k1_inputs(12, 500, device)
+    out = tk.track_chunk_fused(*args, **kw)[0]
+    obs = EpochObs(
+        ip=out[:, :, tk.O_IP], qp=out[:, :, tk.O_QP], ie=out[:, :, tk.O_IE],
+        qe=out[:, :, tk.O_QE], il=out[:, :, tk.O_IL], ql=out[:, :, tk.O_QL],
+        rem=out[:, :, tk.O_REM],
+        blksize=out[:, :, tk.O_BLKSIZE].to(torch.int32),
+        dopp=out[:, :, tk.O_CARR_DOPPLER])
+    E, C, K = 500, 12, GPS_SYNC
+    skw = dict(m=20, t_int_s=SIG.code_period_s, cn0_drop_dbhz=32.0,
+               spc=int(SIG.samples_per_code))
+    bufs = {}
+    for run in ("kernel", "plain", "repeat"):
+        (b,) = sk.new_readback(K, E, C, dual=False, compact=True,
+                               device=device)
+        for j in range(K):
+            if run == "plain":
+                sk.fill_plain(obs, [b], j, **skw)
+            else:
+                sk.epoch_summary(obs, [b], j, **skw)
+        bufs[run] = b
+    torch.cuda.synchronize()
+    n_st = K * C * 16
+    if not torch.equal(bufs["kernel"][:-n_st], bufs["plain"][:-n_st]):
+        raise AssertionError("summary: stream lanes differ from the plain "
+                             "version")
+    if not torch.equal(bufs["kernel"], bufs["repeat"]):
+        raise AssertionError("summary: two fills differ")
+    st = {r: sk.compact_views(bufs[r], K, E, C, False)[4].cpu().numpy()
+          for r in ("kernel", "plain")}
+    dev = {}
+    for i, (name, tol) in enumerate(SUMMARY_TOL.items()):
+        dev[name] = float(np.max(np.abs(st["kernel"][..., i]
+                                        - st["plain"][..., i])))
+        if dev[name] > tol:
+            raise AssertionError(f"summary: {name} off by {dev[name]}")
+    want = st["plain"]
+    away = ((np.abs(want[..., 0] - skw["cn0_drop_dbhz"])
+             > SUMMARY_TOL["cn0_dbhz"])
+            & (np.abs(want[..., 1] - sk.PLL_MIN) > SUMMARY_TOL["pll_lock"]))
+    locked_off = int(np.sum(st["kernel"][..., 3][away] != want[..., 3][away]))
+    if not away.any() or locked_off:
+        raise AssertionError(f"summary: locked differs in {locked_off} of "
+                             f"{int(away.sum())} channel epochs away from "
+                             "the thresholds")
+    (b,) = sk.new_readback(K, E, C, dual=False, compact=True, device=device)
+
+    def kernel_run():
+        for j in range(launches):
+            sk.epoch_summary(obs, [b], j % K, **skw)
+
+    def plain_run():
+        for j in range(K):
+            sk.fill_plain(obs, [b], j, **skw)
+
+    kernel_run()
+    plain_run()
+    us = 1e6 * _timed_s(kernel_run, device) / launches
+    plain_us = 1e6 * _timed_s(plain_run, device) / K
+    n_bytes = E * C * (9 * 4 + 12) + C * 16
+    b_ms, b_by = bound(n_bytes, 0.0)
+    return {"us": us, "plain_us": plain_us, "bound_us": 1e3 * b_ms,
+            "bound_by": b_by, "bytes": n_bytes, "stats_max_abs": dev,
+            "locked_compared": int(away.sum()),
+            "locked_plain_true": int(want[..., 3][away].sum()),
+            **sk.summary_info()}
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -3095,6 +3197,8 @@ def family_mesh_path(name: str, run, base: dict, base_snap: dict,
             and len(res["streams_compared"]) > 0,
         f"{name}: {kernel} launched twice the unsharded count":
             res[f"{kernel}_launches"] == 2 * base[f"{kernel}_launches"] > 0,
+        f"{name}: summary launched the unsharded count":
+            res["summary_launches"] == base["summary_launches"] > 0,
         f"{name}: realtime_factor_overall >= 1":
             res["realtime_factor_overall"] >= 1.0,
         "no jax or gnsstpu module loaded": not refused_modules(),
@@ -3247,6 +3351,7 @@ def cosim_run(device, sky, acq: AcqConfig) -> dict:
                     "integer_loops_host_s": round(int_s, 3),
                     "manager_wall_s": round(mgr_s, 3),
                     "k1_launches": launches["track_chunk_fused"],
+                    "summary_launches": sk.LAUNCHES["epoch_summary"],
                     "failed_prns": {k: v for k, v in failed.items() if v},
                     "per_prn": rows}, checks)
 
@@ -3304,7 +3409,8 @@ def bench_path() -> tuple:
     refused = refused_modules()
     checks["no jax or gnsstpu module loaded"] = not refused
     return line, {"wall_s": wall, "k1_launches": launches[
-        "track_chunk_fused"], "refused_modules": refused, "checks": checks}
+        "track_chunk_fused"], "summary_launches": sk.LAUNCHES["epoch_summary"],
+        "refused_modules": refused, "checks": checks}
 
 
 #: tests/test_joint_pvt.py:44-84: GPS L1 C/A and GLONASS L1OF on one
@@ -3469,6 +3575,7 @@ path, device = sys.argv[1], sys.argv[2]
 spec = importlib.util.spec_from_file_location("example", path)
 example = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(example)
+from gnsstpu_torch.ops import summary_kernel as sk
 from gnsstpu_torch.ops import track_kernel as tk
 
 tk.reset_launches()
@@ -3476,7 +3583,8 @@ t0 = time.perf_counter()
 result = example.main(device=device)
 wall = time.perf_counter() - t0
 print("EXAMPLE-RESULT " + json.dumps({
-    "result": result, "main_wall_s": wall, "launches": dict(tk.LAUNCHES),
+    "result": result, "main_wall_s": wall,
+    "launches": {**tk.LAUNCHES, **sk.LAUNCHES},
     "refused_modules": sorted(m for m in sys.modules
                               if m.split(".")[0] in REFUSED)}), flush=True)
 """
@@ -3584,7 +3692,7 @@ def main() -> int:
     built = tk.build_all()
     build_wall = time.perf_counter() - t0
     k1b = built["track_chunk_fused"]
-    print(f"[2 build] three kernels in {build_wall:.2f} s wall; K1 "
+    print(f"[2 build] four kernels in {build_wall:.2f} s wall; K1 "
           f"{k1b.path.name} built in {k1b.build_s:.2f} s; "
           f"{ptxas(k1b)}; K1 build record: "
           f"{json.dumps(k1_build_record(k1b))}", flush=True)
@@ -3628,6 +3736,21 @@ def main() -> int:
           + f"; on-chunk acquisition search {acq_search_ms(dev):.3f} ms",
           flush=True)
 
+    # 40. The epoch summary kernel at the main path's shape.
+    summ = summary_path(dev)
+    sb = built["epoch_summary"]
+    print(f"[40 epoch summary] C=12 x E=500 (K1's strided out), 8 slots of "
+          f"a compact readback: kernel {summ['us']:.3f} us per launch, "
+          f"plain version {summ['plain_us']:.3f} us per epoch, bound "
+          f"{summ['bound_us']:.4f} us ({summ['bound_by']}, "
+          f"{summ['bytes']} bytes); stream lanes bit-equal, stats within "
+          f"{json.dumps(SUMMARY_TOL)}, locked equal in "
+          f"{summ['locked_compared']} channel epochs away from the "
+          f"thresholds ({summ['locked_plain_true']} locked), two fills "
+          f"bit-identical; "
+          f"{sb.path.name} built in {sb.build_s:.2f} s (beside K1-K3); "
+          f"{ptxas(sb)}; {json.dumps(summ)}", flush=True)
+
     # 5. GPS main path.
     res, gps_src, gps_snap = gps_main_path(dev)
     gps_wire = gps_src.packed
@@ -3638,6 +3761,8 @@ def main() -> int:
         "pvt_solutions >= 10": res["pvt_solutions"] >= 10,
         "last_fix_err_m < 100": res.get("last_fix_err_m", 1e9) < 100.0,
         "k1_launches > 0": res["k1_launches"] > 0,
+        "one summary launch per K1 launch":
+            res["summary_launches"] == res["k1_launches"],
         "jax not imported": "jax" not in sys.modules,
     }
     failed = [k for k, ok in checks.items() if not ok]
@@ -4025,6 +4150,25 @@ def main() -> int:
           f"glonass_l3oc_live_12ch {lres['k3_launches']}, "
           f"glonass_l3oc_track_dual_8ch {dres['launches']}, "
           f"glonass_l3oc_live_12ch_mesh2 {k3_mesh}", flush=True)
+    # The epoch summary kernel's launches on each live path (one per
+    # supervision epoch; the examples' read back from their processes).
+    summary_paths = {
+        "gps_l1_live_12ch": res["summary_launches"],
+        "gps_l1_live_12ch_mesh2": mres["summary_launches"],
+        "galileo_e1b_live_12ch": gres["summary_launches"],
+        "glonass_l3oc_live_12ch": lres["summary_launches"],
+        "beidou_b1i_live_12ch": bres["summary_launches"],
+        "glonass_l1of_live_12ch": ores["summary_launches"],
+        "gps_l1_tcp_live_12ch": tres["summary_launches"],
+        "gps_l1_16msps_resampled_12ch": rres["summary_launches"],
+        "gps_l1_gp2021_cosim_12ch": coarse["summary_launches"] + sum(
+            r["summary_launches"] for r in cres36.values()),
+        "bench": bench_res["summary_launches"],
+        **{tag: r["summary_launches"] for tag, r in fres.items()}}
+    summary_paths.update({ex: r["launches"]["epoch_summary"]
+                          for ex, r in exres.items()})
+    print(f"[18 summary launches by path] {json.dumps(summary_paths)}",
+          flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "track_chunk_fused", "route": "cuda", "source": K1_SOURCE,
@@ -4044,6 +4188,13 @@ def main() -> int:
          "max_abs_err": l500["acc_abs"],
          "ms": k3_ms, "plain_ms": k3p_ms, "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": None},
+        {"name": "epoch_summary", "route": "cuda",
+         "source": SUMMARY_SOURCE, "replaces": SUMMARY_REPLACES,
+         "launches": sum(summary_paths.values()),
+         "max_abs_err": summ["stats_max_abs"]["cn0_dbhz"],
+         "ms": 1e-3 * summ["us"], "plain_ms": 1e-3 * summ["plain_us"],
+         "bound_ms": 1e-3 * summ["bound_us"],
+         "bound_by": summ["bound_by"], "library_ms": None},
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -101,8 +101,12 @@ LAUNCHES = {"track_chunk_fused": 0, "track_chunk_boc_fused": 0,
 
 
 def reset_launches() -> None:
+    """Zero K1-K3's launch counts and the epoch summary kernel's."""
+    from gnsstpu_torch.ops import summary_kernel
+
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    summary_kernel.reset_launches()
 
 
 _TIMING = threading.local()
@@ -669,15 +673,17 @@ def _check_aligned16(name, t):
 
 
 def build_all() -> dict:
-    """Build (or load) every kernel library of the port, one nvcc per
-    source, all started together. Returns {kernel name:
-    cuda_build.BuiltLibrary}."""
-    from gnsstpu_torch.ops import cuda_build
+    """Build (or load) every kernel library of the port (K1, K2, K3 and
+    ops.summary_kernel's), one nvcc per source, all started together.
+    Returns {kernel name: cuda_build.BuiltLibrary}."""
+    from gnsstpu_torch.ops import cuda_build, summary_kernel
 
-    cuda_build.load_many([SOURCE, BOC_SOURCE, DUAL_SOURCE])
+    cuda_build.load_many([SOURCE, BOC_SOURCE, DUAL_SOURCE,
+                          summary_kernel.SOURCE])
     return {"track_chunk_fused": _lib(),
             "track_chunk_boc_fused": _boc_lib(),
-            "track_chunk_dual_fused": _dual_lib()}
+            "track_chunk_dual_fused": _dual_lib(),
+            "epoch_summary": summary_kernel._lib()}
 
 
 def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,

@@ -13,8 +13,10 @@ tracking engine (tracking.engines: K1 for the 1 ms codes, K2 for E1B's
 observables; a dual-component engine adds the data prompts, which ride two
 more stream lanes into the i_p2 / q_p2 history. The device parts
 are torch: slot rows are written in place, a superepoch is a Python loop
-of k kernel launches each followed by its device lock summary, and the
-readback is one host copy per superepoch.
+of k kernel launches each followed by its device lock summary (one
+launch of ops.summary_kernel's kernel, which writes the epoch's slot of
+the superepoch's readback buffer), and the readback is one host copy per
+superepoch.
 
 Pipelined superepochs (sync_every > 1) batch k supervision epochs into
 one upload + k dispatches + one readback. prefetch=True lets the device
@@ -50,7 +52,8 @@ epoch nav.poll, history.trim), acq.finish, acq.host_search, and
 manager.build in the constructor; the reader thread (gnss-feed):
 feed.read, feed.upload; the fetch thread (gnss-fetch):
 fetch.device_wait, fetch.decode. With tracing on, K1's launches carry
-CUDA timing events, summed into the superepoch span's k1_device_ns.
+CUDA timing events, summed into the superepoch span's k1_device_ns, and
+the dispatch span counts the summary kernel's launches (summaries).
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ from gnsstpu_torch.acquisition.search import (
     AcqResults, _windows_of, acq_samples_needed, acquire, acquire_fdma,
     code_fd_tensor, fdma_grid, refine_doppler)
 from gnsstpu_torch.device import U32_MASK, resolve_device
-from gnsstpu_torch.ops import fft_acquire, track_kernel
+from gnsstpu_torch.ops import fft_acquire, summary_kernel, track_kernel
 from gnsstpu_torch.ops import unpack as up
 from gnsstpu_torch.parallel.mesh import (Sharded, replicate, shard_rows,
                                          to_device, tree_map)
@@ -845,54 +848,33 @@ class ChannelManager:
     (_T_CN0, _T_PLL, _T_CODE, _T_LOCKED) = range(4)
 
     def _make_summarize(self):
-        """summarize(obs, cn0_drop) -> the epoch's device summary: lock
-        stats [C, 4] from assess_device plus the per-block streams, as
-        f32 lanes or (compact) f16 prompts / u16 rem / i16 blksize delta /
-        f32 Doppler. A dual-component engine adds its data prompts (two
-        more lanes or prompts)."""
+        """summarize(obs, cn0_drop, out, j) fills epoch slot j of a
+        superepoch's readback `out` (_new_readback) with the epoch's
+        device summary: lock stats [C, 4] from assess_device's formulas
+        plus the per-block streams, as f32 lanes or (compact) f16 prompts
+        / u16 rem / i16 blksize delta / f32 Doppler; a dual-component
+        engine adds its data prompts (two more lanes or prompts). One
+        launch of ops.summary_kernel's kernel on the card (returns True),
+        its plain version on the CPU (False)."""
         m = min(20, max(1, self._bpe))
-        dual = self.eng.has_data_component
-        compact = self.readback == "compact"
         spc_nom = int(self.sig.samples_per_code)
         t_int = self.sig.code_period_s
 
-        def summarize(obs, cn0_drop):
-            stats = tlock.assess_device(
-                obs.ie, obs.qe, obs.ip, obs.qp, obs.il, obs.ql,
-                t_int_s=t_int, cn0_drop_dbhz=cn0_drop, m=m)
-            st = torch.stack(
-                [stats["cn0_dbhz"], stats["pll_lock"], stats["code_lock"],
-                 stats["locked"].to(torch.float32)], dim=-1)   # [C, 4]
-            if compact:
-                # Prompts scaled by 1/spc (f16 cannot overflow); rem as
-                # u16 fixed point over [0, 1) chips (~4 mm).
-                scale = float(np.float32(1.0 / spc_nom))
-                rem_u16 = torch.clamp(torch.round(obs.rem * 65535.0),
-                                      0, 65535).to(torch.int32)
-                pp = [obs.ip, obs.qp] + ([obs.ip2, obs.qp2] if dual else [])
-                return (torch.stack([p * scale for p in pp],
-                                    dim=-1).to(torch.float16),
-                        rem_u16,
-                        (obs.blksize - spc_nom).to(torch.int16),
-                        obs.dopp, st)
-            lanes = [obs.ip, obs.qp, obs.rem,
-                     obs.blksize.to(torch.float32), obs.dopp]
-            if dual:
-                lanes += [obs.ip2, obs.qp2]
-            return torch.stack(lanes, dim=-1), st       # [E, C, 5(+2)]
+        def summarize(obs, cn0_drop, out, j):
+            return summary_kernel.epoch_summary(
+                obs, out, j, m=m, t_int_s=t_int, cn0_drop_dbhz=cn0_drop,
+                spc=spc_nom)
 
         return summarize
 
-    def _pack_epochs(self, summaries) -> list:
-        """K epoch summaries -> the tensors of one readback: (streams
-        [K,E,C,5(+2)], stats [K,C,4]), or one byte buffer (compact)."""
-        leaves = [torch.stack(xs) for xs in zip(*summaries)]
-        if self.readback != "compact":
-            return leaves
-        pp, rem, blkd, dopp, st = leaves
-        rem16 = torch.where(rem >= 32768, rem - 65536, rem).to(torch.int16)
-        return [torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
-                           for t in (pp, rem16, blkd, dopp, st)])]
+    def _new_readback(self, k: int) -> list:
+        """The tensors of one k-epoch readback, which summarize fills
+        slot by slot: (streams [k,E,C,5(+2)], stats [k,C,4]), or one byte
+        buffer (compact)."""
+        return summary_kernel.new_readback(
+            k, self._bpe, self.cfg.n_channels,
+            dual=self.eng.has_data_component,
+            compact=self.readback == "compact", device=self.device)
 
     def _decode_readback(self, raw: list):
         """Canonical (streams [K,E,C,5(+2)] f32, stats [K,C,4]) from the
@@ -1022,12 +1004,15 @@ class ChannelManager:
         k1_events = [] if tlm.trace else None
         with tlm.span("dispatch", se=epoch_ms0, k=k,
                       n_active=len(active)) as disp:
-            outs = []
+            packed = self._new_readback(k)
+            n_sum = 0
             with track_kernel.timed_launches(k1_events):
-                for win in self._epoch_windows(chunk_dev, k):
+                for j, win in enumerate(self._epoch_windows(chunk_dev, k)):
                     state, obs = self._step_epoch(win, self._bank_dev,
                                                   state)
-                    outs.append(self._summarize(obs, float(self.cn0_drop)))
+                    n_sum += self._summarize(obs, float(self.cn0_drop),
+                                             packed, j)
+            tlm.count(summaries=n_sum)
             self._state = state
 
             acq_fut = None
@@ -1049,7 +1034,7 @@ class ChannelManager:
 
         with tlm.span("readback", se=epoch_ms0) as rb:
             (streams, stats), acq_fut, k1 = self._materialize(
-                _Readback(self._pack_epochs(outs)), acq_fut, epoch_ms0,
+                _Readback(packed), acq_fut, epoch_ms0,
                 k1_events)
             outs = [(streams[j], stats[j]) for j in range(k)]
         tlm.task_health(epoch_ms0, "track", disp.wall_s,
@@ -1106,11 +1091,13 @@ class ChannelManager:
             return s._replace(corr=s.corr._replace(sample_pos=sp))
 
         state = _rows_map(state, retarget)
-        outs = []
-        for win in self._epoch_windows(chunk, k):
+        packed = self._new_readback(k)
+        n_sum = 0
+        for j, win in enumerate(self._epoch_windows(chunk, k)):
             state, obs = self._step_epoch(win, bank, state)
-            outs.append(self._summarize(obs, cn0_drop))
-        return state, self._pack_epochs(outs)
+            n_sum += self._summarize(obs, cn0_drop, packed, j)
+        self.tlm.count(summaries=n_sum)
+        return state, packed
 
     def _prefetch_chunk(self, base: int, k: int, se: int) -> _Chunk:
         """Read + upload one superepoch chunk (on the reader thread, or
