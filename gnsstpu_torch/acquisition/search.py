@@ -7,15 +7,25 @@ alternating windows, or sum-combined noncoherent), peak / second-peak
 ratio against a threshold, and the (code phase [samples], carrier
 frequency [Hz]) handoff to tracking.
 
-Deviation: acquire() on an FDMA signal raises ValueError naming
+Deviations: acquire() on an FDMA signal raises ValueError naming
 acquire_fdma. The reference would search a per-PRN code bank against one
 Doppler grid around IF there, which finds no frequency channel but the
-zero one.
+zero one. On a signal whose satellites send a data code beside the pilot
+(GLONASS L3OC: code prn + 32, in quadrature at equal power), each
+satellite is detected on the sum of its pilot and data codes' power at
+every (Doppler, lag) cell (combine_components), and its carrier is
+refined before the handoff even when the configuration asks for no fine
+Doppler (fine_doppler_ms); the reference detects on the pilot code alone,
+which at 48 dB-Hz, 1 ms and 2-bit samples misses a satellite in a few
+percent of cold searches, and hands over the bin's frequency, up to a
+bin off, which an on-chunk search carries forward at the wrong code rate.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,9 +44,54 @@ class AcqResults:
     code_phase: np.ndarray    # [P] samples (0-based offset of code start)
     carr_freq: np.ndarray     # [P] acquired carrier frequency [Hz]
     detected: np.ndarray      # [P] bool
+    codes: int = 0            # code rows the search correlated
+    combined: bool = False    # pilot and data powers summed
 
     def detected_prns(self) -> list:
         return [int(p) + 1 for p in np.nonzero(self.detected)[0]]
+
+
+def data_code_offset(signal: str) -> Optional[int]:
+    """Code-bank offset of each satellite's data code from its pilot
+    code, for a signal that sends both (GLONASS L3OC: code prn + 32), else
+    None."""
+    if signal != "glonass_l3oc":
+        return None
+    from gnsstpu_torch.signals import glonass_l3
+
+    return glonass_l3.data_prn(1) - glonass_l3.pilot_prn(1)
+
+
+def combine_components(cube: torch.Tensor, signal: str) -> bool:
+    """In place on a [P, D, S] power cube of the whole code bank: add
+    each data code's power into its pilot code's row at every (Doppler,
+    lag) cell, for a signal that sends both (data_code_offset); the data
+    rows are left as they are. The two codes share the carrier and the
+    code start, and neither overlay flips inside a window that starts at
+    the code start, so the pilot row then holds the satellite's whole
+    power. Returns whether it combined (False: the cube is untouched)."""
+    off = data_code_offset(signal)
+    if off is None:
+        return False
+    n = cube.shape[0] - off
+    cube[:n] += cube[off:]
+    return True
+
+
+#: Code periods of fine Doppler before a pilot + data signal's handoff
+#: when the configuration asks for none: 10 squared 1 ms pilot prompts
+#: resolve up to +-250 Hz (a bin is 250 Hz) to a few Hz at 48 dB-Hz.
+DUAL_FINE_DOPPLER_MS = 10
+
+
+def fine_doppler_ms(sig: SignalConfig, acq: AcqConfig) -> int:
+    """Code periods of fine Doppler before handoff (0: none): the
+    configuration's, or DUAL_FINE_DOPPLER_MS for a signal that sends a
+    data code beside the pilot (data_code_offset) when it asks for
+    none."""
+    if acq.fine_doppler_ms > 0 or data_code_offset(sig.signal) is None:
+        return acq.fine_doppler_ms
+    return DUAL_FINE_DOPPLER_MS
 
 
 def _windows_of(acq: AcqConfig) -> tuple:
@@ -53,7 +108,7 @@ def acq_samples_needed(sig: SignalConfig, acq: AcqConfig) -> int:
     B, _ = _windows_of(acq)
     base = (B - 1) * acq.coherent_ms * spc + fft_acquire.window_len(
         spc, acq.coherent_ms)
-    return max(base, (acq.fine_doppler_ms + 1) * spc)
+    return max(base, (fine_doppler_ms(sig, acq) + 1) * spc)
 
 
 def refine_doppler(samples_iq: np.ndarray, sig: SignalConfig, prn: int,
@@ -89,9 +144,21 @@ def refine_doppler(samples_iq: np.ndarray, sig: SignalConfig, prn: int,
 
 def code_fd_tensor(sig: SignalConfig, acq: AcqConfig, device
                    ) -> torch.Tensor:
-    """complex64 [P, Npad] conj code spectra on `device`."""
-    fd_re, fd_im = fft_acquire.code_fd_table(
-        sig.signal, sig.fs, sig.code_freq, sig.code_length, acq.coherent_ms)
+    """complex64 [P, Npad] conj code spectra on `device`, made once a
+    process for each signal, front end, coherent length and device, and
+    shared: callers read it and never write it. (A cold start at 24 Msps
+    would otherwise build 63 x 65,536-point spectra on the host and
+    upload their 33 MB for its first search and again for the manager's
+    on-chunk searches.)"""
+    return _code_fd(sig.signal, sig.fs, sig.code_freq, sig.code_length,
+                    acq.coherent_ms, torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _code_fd(signal: str, fs: float, code_freq: float, code_length: int,
+             coherent_ms: int, device: torch.device) -> torch.Tensor:
+    fd_re, fd_im = fft_acquire.code_fd_table(signal, fs, code_freq,
+                                             code_length, coherent_ms)
     return torch.complex(torch.from_numpy(fd_re),
                          torch.from_numpy(fd_im)).to(device)
 
@@ -134,6 +201,7 @@ def acquire(samples_iq: np.ndarray, sig: SignalConfig, acq: AcqConfig, *,
         blocks, code_fd_tensor(sig, acq, dev),
         torch.as_tensor(dopp, dtype=torch.float32, device=dev),
         sig.fs, spc, combine=combine)
+    combined = combine_components(cube, sig.signal)
     m = fft_acquire.peak_metrics(cube, samples_per_code=spc,
                                  samples_per_chip=round(sig.fs
                                                         / sig.code_freq))
@@ -146,13 +214,15 @@ def acquire(samples_iq: np.ndarray, sig: SignalConfig, acq: AcqConfig, *,
         allowed[[p - 1 for p in acq.prn_list]] = True
     detected = (metric > acq.threshold) & allowed
     carr = dopp[best_bin].astype(np.float64)
-    if acq.fine_doppler_ms > 0:
+    k_ms = fine_doppler_ms(sig, acq)
+    if k_ms > 0:
         for i in np.nonzero(detected)[0]:
             carr[i] = refine_doppler(
                 samples_iq, sig, int(i) + 1, int(code_phase[i]), carr[i],
-                k_ms=acq.fine_doppler_ms)
+                k_ms=k_ms)
     return AcqResults(peak_metric=metric, code_phase=code_phase,
-                      carr_freq=carr, detected=detected)
+                      carr_freq=carr, detected=detected,
+                      codes=int(cube.shape[0]), combined=combined)
 
 
 def fdma_grid(sig: SignalConfig, acq: AcqConfig) -> tuple:
@@ -215,4 +285,4 @@ def acquire_fdma(samples_iq: np.ndarray, sig: SignalConfig, acq: AcqConfig,
                 samples_iq, sig, int(i) + 1, int(code_phase[i]), carr[i],
                 k_ms=acq.fine_doppler_ms)
     return AcqResults(peak_metric=metric, code_phase=code_phase,
-                      carr_freq=carr, detected=detected)
+                      carr_freq=carr, detected=detected, codes=1)

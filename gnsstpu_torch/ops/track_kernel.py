@@ -112,19 +112,58 @@ def reset_launches() -> None:
 _TIMING = threading.local()
 
 
+#: The kernels timed inside timed_launches (LAUNCHES' key -> the prefix
+#: of their span counters).
+TIMED = {"track_chunk_fused": "k1", "track_chunk_dual_fused": "k3"}
+
+
 @contextlib.contextmanager
 def timed_launches(events):
-    """Within the block, each K1 launch made on this thread appends a
-    pair of timing CUDA events, recorded on its stream just before the
-    kernel is launched (by the C entry) and after, to events (a list);
-    events None times nothing. Read elapsed_time only once work queued
-    behind the launches has completed."""
+    """Within the block, each launch of a TIMED kernel made on this thread
+    appends (its LAUNCHES key, start, end) to events (a list): a pair of
+    timing CUDA events recorded on its stream just before the kernel is
+    launched (by the C entry) and after; events None times nothing. Read
+    them (event_counters) only once work queued behind the launches has
+    completed."""
     prev = getattr(_TIMING, "events", None)
     _TIMING.events = events
     try:
         yield
     finally:
         _TIMING.events = prev
+
+
+def event_counters(events: list) -> dict:
+    """Span counters of timed_launches' events: per kernel that launched,
+    '<k>_launches' and '<k>_device_ns' (the launches' summed device time,
+    from their CUDA events), k its TIMED prefix."""
+    ms = {}
+    for name, a, b in events:
+        n, t = ms.get(TIMED[name], (0, 0.0))
+        ms[TIMED[name]] = (n + 1, t + a.elapsed_time(b))
+    out = {}
+    for k, (n, t) in ms.items():
+        out[f"{k}_launches"] = n
+        out[f"{k}_device_ns"] = round(1e6 * t)
+    return out
+
+
+def _start_pair(events, stream):
+    """A launch's pair of timing events with its start recorded on stream
+    (which creates the event the C entry records again just before the
+    launch), or None when events is None."""
+    if events is None:
+        return None
+    pair = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    pair[0].record(stream)
+    return pair
+
+
+def _end_pair(events, pair, stream, name: str) -> None:
+    if pair is not None:
+        pair[1].record(stream)
+        events.append((name,) + pair)
 
 
 #: Most CTAs in one of K2's / K3's clusters (the portable cluster size).
@@ -372,9 +411,8 @@ def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
                   fll_disc: str = "atan2", events=None):
     """One launch of K1 (its stamped instance when stamps is not None)
     on CUDA tensors already checked; returns (out, ffin, pos, cphase).
-    events: a list that gets a pair of timing events on the launch's
-    stream: the first recorded (again) by the C entry just before the
-    launch, after the host's preparation of it, the second after it."""
+    events: a list that gets the launch's timing events
+    (timed_launches)."""
     dev = chunk.device
     if chunk.data_ptr() % 8:
         raise ValueError("chunk must be 8-byte aligned")
@@ -393,12 +431,7 @@ def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
     with torch.cuda.device(dev):
         cur = torch.cuda.current_stream(dev)
         stream = cur.cuda_stream
-        start = None
-        if events is not None:
-            pair = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            pair[0].record(cur)          # creates the event the C entry uses
-            start = pair[0].cuda_event
+        pair = _start_pair(events, cur)
         rc = built.lib.track_chunk_fused_cuda(
             chunk.data_ptr(), chunk.shape[0], tab.data_ptr(),
             pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
@@ -409,10 +442,9 @@ def _launch_fused(chunk, tab, pos0, finit, cinit, carrbase, stamps, *,
             k["base_code_step"], k["inv_fs"], k["nco_scale"], k["ph"],
             *k["row_off"], k["ang_scale"], k["inv_pi"], k["inv_2pi"],
             k["k1"], k["k2"], k["k3"], k["c_dll_p"], k["c_dll_i"],
-            int(_fll_atan(fll_disc)), stream, start)
-        if events is not None:
-            pair[1].record(cur)
-            events.append(pair)
+            int(_fll_atan(fll_disc)), stream,
+            None if pair is None else pair[0].cuda_event)
+        _end_pair(events, pair, cur, "track_chunk_fused")
     if rc != 0:
         msg = built.lib.track_fused_error_string(rc).decode()
         raise RuntimeError(f"track_chunk_fused launch failed: {msg} ({rc})")
@@ -868,7 +900,7 @@ def _dual_lib():
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p, ctypes.c_longlong] + [p] * 9 + [i] * 5
-                       + [p, i, p])
+                       + [p, i, p, p])
         fn.restype = ctypes.c_int
         _bind_info_and_errors(built.lib, "track_dual_fused")
     return built
@@ -882,7 +914,8 @@ def track_chunk_dual_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
 
     Dtypes and shapes are checked on every device. CPU tensors then run
     the plain twin; CUDA tensors launch the kernel (on
-    torch.cuda.current_stream()) or raise.
+    torch.cuda.current_stream()) or raise. Inside timed_launches the
+    launch is bracketed by timing events.
     """
     kw = dict(n_blocks=n_blocks, blkp=blkp, code_length=code_length,
               phases_per_chip=phases_per_chip, span_chips=span_chips,
@@ -916,15 +949,18 @@ def track_chunk_dual_fused(chunk, tab, pos0, finit, cinit, carrbase, *,
     _check_aligned16("tab", tab)
     N, _ = cluster_split(C, blkp, _sm_count(dev))
     built = _dual_lib()
+    events = getattr(_TIMING, "events", None)
     with torch.cuda.device(dev):         # as in _launch_fused
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cur = torch.cuda.current_stream(dev)
+        pair = _start_pair(events, cur)
         rc = built.lib.track_chunk_dual_fused_cuda(
             chunk.data_ptr(), chunk.shape[0], tab.data_ptr(),
             pos0.data_ptr(), finit.data_ptr(), cinit.data_ptr(),
             carrbase.data_ptr(), out.data_ptr(), ffin.data_ptr(),
             pos.data_ptr(), cph.data_ptr(), C, n_blocks, R, blkp, N,
             ctypes.cast(consts, ctypes.c_void_p), len(DUAL_CONSTS),
-            stream)
+            cur.cuda_stream, None if pair is None else pair[0].cuda_event)
+        _end_pair(events, pair, cur, "track_chunk_dual_fused")
     if rc != 0:
         msg = built.lib.track_dual_fused_error_string(rc).decode()
         raise RuntimeError(

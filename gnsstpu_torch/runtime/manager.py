@@ -51,9 +51,13 @@ acq.chunk_search), harvest.wait (pipelined) or readback, supervise (per
 epoch nav.poll, history.trim), acq.finish, acq.host_search, and
 manager.build in the constructor; the reader thread (gnss-feed):
 feed.read, feed.upload; the fetch thread (gnss-fetch):
-fetch.device_wait, fetch.decode. With tracing on, K1's launches carry
-CUDA timing events, summed into the superepoch span's k1_device_ns, and
-the dispatch span counts the summary kernel's launches (summaries).
+fetch.device_wait, fetch.decode. With tracing on, K1's and K3's
+launches carry CUDA timing events, summed into the superepoch span's
+k1_device_ns / k3_device_ns (with k1_launches / k3_launches), the
+dispatch span counts the summary kernel's launches (summaries), and each
+search span (acq.host_search, acq.chunk_search) the code rows it
+correlated (codes) and whether pilot and data powers were summed
+(combined).
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ from gnsstpu_torch.runtime.telemetry import Telemetry
 from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.acquisition.search import (
     AcqResults, _windows_of, acq_samples_needed, acquire, acquire_fdma,
-    code_fd_tensor, fdma_grid, refine_doppler)
+    code_fd_tensor, combine_components, fdma_grid, fine_doppler_ms,
+    refine_doppler)
 from gnsstpu_torch.device import U32_MASK, resolve_device
 from gnsstpu_torch.ops import fft_acquire, summary_kernel, track_kernel
 from gnsstpu_torch.ops import unpack as up
@@ -156,7 +161,7 @@ class _Inflight:
     upload: object
     dispatch: object          # the dispatch,
     span: object              # the superepoch (open until supervised)
-    k1_events: Optional[list] = None   # K1's timing events (tracing on)
+    kernel_events: Optional[list] = None  # K1 / K3 timing (tracing on)
     fetch: object = None
     acq_base: int = 0
 
@@ -173,6 +178,13 @@ class _Chunk:
     need_len: int
     read: object              # spans of the read and the upload
     upload: object
+
+
+#: Bank arrays from this size up are uploaded through pinned memory
+#: (_put_dev): K3's tap tables, 11.5 MB a channel at 24 Msps (139 MB a
+#: 12-channel bank, uploaded at each cold start); K1's whole bank at
+#: 2.048 Msps is 3.3 MB and stays pageable.
+_PINNED_BYTES = 8 << 20
 
 
 def _host_bytes(buf) -> int:
@@ -365,8 +377,16 @@ class ChannelManager:
     # --- device placement (one device or a mesh) ---
 
     def _put_dev(self, x: np.ndarray, device=None) -> torch.Tensor:
-        """Host bank array -> device tensor (uint32 rides int64)."""
-        return to_device(x, device or self.device)
+        """Host bank array -> device tensor (uint32 rides int64). One of
+        _PINNED_BYTES or more goes to a card through pinned host memory:
+        a pageable copy that large holds the card for as long as the host
+        takes to stage it."""
+        dev = torch.device(device or self.device)
+        if dev.type == "cuda" and x.nbytes >= _PINNED_BYTES \
+                and x.dtype != np.uint32:
+            return torch.from_numpy(np.ascontiguousarray(x)).pin_memory(
+                ).to(dev, non_blocking=True)
+        return to_device(x, dev)
 
     def _shard(self, state):
         """A whole [C]-leaved state, split over the mesh when there is
@@ -579,6 +599,7 @@ class ChannelManager:
         fdma = self.sd.fdma_zero_prn is not None
         search = acquire_fdma if fdma else acquire
         res = search(samples, self.sig, acq_cfg, device=self.device)
+        self.tlm.count(codes=res.codes, combined=int(res.combined))
         self._place(res, idle, want, self._cursor, epoch_ms, fdma=fdma)
 
     def _place(self, res, idle: list, want: list, base: int,
@@ -650,6 +671,8 @@ class ChannelManager:
                                             spc, combine=combine)
             if fdma:
                 cube = cube.reshape(K, D, spc)
+            both = combine_components(cube, sig.signal)
+            self.tlm.count(codes=code_fd.shape[0], combined=int(both))
             return self._peak_lanes(cube, spc, spchip)
 
         return search
@@ -705,6 +728,7 @@ class ChannelManager:
                                   for k in range(B_c)])
             part = fft_acquire.acquire_cube(blocks, code_fd, grid, sig.fs,
                                             spc, combine="sum")
+            self.tlm.count(codes=code_fd.shape[0])
             if fdma:
                 part = part.reshape(K, D, spc)
             # Later chunks start at another stream base: rotate the
@@ -713,6 +737,8 @@ class ChannelManager:
             return cube + torch.roll(part, roll, dims=-1)
 
         def finish(cube):
+            both = combine_components(cube, sig.signal)
+            self.tlm.count(combined=int(both))
             return self._peak_lanes(cube, spc, spchip)
 
         self._acq_wk_fns = (accum, finish, B, B_c, need)
@@ -809,8 +835,8 @@ class ChannelManager:
         carr = self._acq_doppler[best_bin].astype(np.float64)
         if fdma:   # absolute carrier: IF + channel offset + Doppler bin
             carr = carr + self.sig.if_freq + self._acq_offs
-        if acq.fine_doppler_ms > 0 and np.any(detected):
-            k_ms = acq.fine_doppler_ms
+        k_ms = fine_doppler_ms(self.sig, acq)
+        if k_ms > 0 and np.any(detected):
             win = self._host_samples(base, (k_ms + 1) * self.sig.
                                      samples_per_code + 64)
             # Refine only against a fully covered window: a weak search's
@@ -1001,12 +1027,12 @@ class ChannelManager:
                     rel[r].astype(np.int32),
                     device=s.corr.sample_pos.device))))
         sup = tlm.open_span("superepoch", se=epoch_ms0)
-        k1_events = [] if tlm.trace else None
+        kernel_events = [] if tlm.trace else None
         with tlm.span("dispatch", se=epoch_ms0, k=k,
                       n_active=len(active)) as disp:
             packed = self._new_readback(k)
             n_sum = 0
-            with track_kernel.timed_launches(k1_events):
+            with track_kernel.timed_launches(kernel_events):
                 for j, win in enumerate(self._epoch_windows(chunk_dev, k)):
                     state, obs = self._step_epoch(win, self._bank_dev,
                                                   state)
@@ -1033,9 +1059,9 @@ class ChannelManager:
                 self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
 
         with tlm.span("readback", se=epoch_ms0) as rb:
-            (streams, stats), acq_fut, k1 = self._materialize(
+            (streams, stats), acq_fut, timing = self._materialize(
                 _Readback(packed), acq_fut, epoch_ms0,
-                k1_events)
+                kernel_events)
             outs = [(streams[j], stats[j]) for j in range(k)]
         tlm.task_health(epoch_ms0, "track", disp.wall_s,
                         engine=self.engine, n_active=len(active),
@@ -1066,7 +1092,7 @@ class ChannelManager:
                 self._try_acquire((e0 + k) * self.epoch_ms)
             tlm.task_health((e0 + k) * self.epoch_ms, "acquire",
                             acq.wall_s)
-        tlm.close_span(sup, **k1)
+        tlm.close_span(sup, **timing)
         return True
 
     # --- prefetch pipeline (overlapped superepochs) ---
@@ -1120,11 +1146,11 @@ class ChannelManager:
         epoch_ms0 = e0 * self.epoch_ms
         tlm = self.tlm
         sup = tlm.open_span("superepoch", se=epoch_ms0)
-        k1_events = [] if tlm.trace else None
+        kernel_events = [] if tlm.trace else None
         with tlm.span("dispatch", se=epoch_ms0, k=k) as disp:
             if self._bank_dev is None:
                 self._bank_dev = self._bank_to_device()
-            with track_kernel.timed_launches(k1_events):
+            with track_kernel.timed_launches(kernel_events):
                 self._state, packed = self._super_step(
                     chunk.dev, self._bank_dev, self._state,
                     float(self.cn0_drop), delta, mask, newsp, k)
@@ -1157,7 +1183,7 @@ class ChannelManager:
                          acq_host=acq_host, buf=chunk.buf,
                          n_active=n_active, read=chunk.read,
                          upload=chunk.upload, dispatch=disp, span=sup,
-                         k1_events=k1_events, acq_base=acq_base)
+                         kernel_events=kernel_events, acq_base=acq_base)
 
     def _next_base(self, active: list, la: int, k: int, det: int) -> int:
         """Base for the next chunk: follow the fleet's positions (min
@@ -1173,26 +1199,23 @@ class ChannelManager:
         return desired
 
     def _materialize(self, packed: _Readback, acq_fut, se: int,
-                     k1_events: Optional[list]):
+                     kernel_events: Optional[list]):
         """Wait for a superepoch's readback copy (and the search
         metrics) and decode it: the fetch thread's body when pipelined.
         Returns (canonical streams, search metrics or None, the
-        superepoch span's K1 counters). K1's timing events are read once
-        the readback's event, queued behind them, has completed."""
+        superepoch span's kernel counters). K1's and K3's timing events
+        are read once the readback's event, queued behind them, has
+        completed."""
         tlm = self.tlm
         with tlm.span("fetch.device_wait", se=se):
             packed.wait()
             if acq_fut is not None:
                 acq_fut.wait()
-        k1 = {}
-        if k1_events:
-            k1 = {"k1_launches": len(k1_events),
-                  "k1_device_ns": round(1e6 * sum(
-                      a.elapsed_time(b) for a, b in k1_events))}
+        timing = track_kernel.event_counters(kernel_events or [])
         with tlm.span("fetch.decode", se=se):
             streams = self._decode_readback(packed.numpy())
             acq = acq_fut.numpy()[0] if acq_fut is not None else None
-        return streams, acq, k1
+        return streams, acq, timing
 
     def _run_pipelined(self, e0: int, n_epochs: int) -> None:
         espc = self._espc
@@ -1312,7 +1335,7 @@ class ChannelManager:
                                                 newsp)
                 cur.fetch = fx.submit(self._materialize, cur.packed,
                                       cur.acq_fut, epoch_ms0,
-                                      cur.k1_events)
+                                      cur.kernel_events)
                 self._det_base = base + k * espc
                 k_next = min(self.sync_every, n_epochs - e - k)
                 if k_next > 0:
@@ -1348,10 +1371,10 @@ class ChannelManager:
         tlm = self.tlm
         with tlm.span("harvest.wait", se=epoch_ms0) as wait:
             if p.fetch is not None:
-                (streams_k, stats_k), acq, k1 = p.fetch.result()
+                (streams_k, stats_k), acq, timing = p.fetch.result()
             else:
-                (streams_k, stats_k), acq, k1 = self._materialize(
-                    p.packed, p.acq_fut, epoch_ms0, p.k1_events)
+                (streams_k, stats_k), acq, timing = self._materialize(
+                    p.packed, p.acq_fut, epoch_ms0, p.kernel_events)
         with tlm.span("supervise", se=epoch_ms0) as sv:
             tlm.task_health(epoch_ms0, "track", p.dispatch.wall_s,
                             engine=self.engine, n_active=p.n_active,
@@ -1405,7 +1428,7 @@ class ChannelManager:
                 relp = self._abs_pos[i] + adv - next_base
                 if relp < 0 or relp > self._drift_margin:
                     self._drop(i, alloc_ms, why="window_overrun")
-        tlm.close_span(p.span, **k1)
+        tlm.close_span(p.span, **timing)
 
     # --- host supervision (the reference's, copied) ---
 

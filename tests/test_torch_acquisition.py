@@ -2,11 +2,14 @@
 
 Same samples (JAX IFSimulator on the CPU): the power cube agrees to
 rtol 1e-3 of its peak (two different f32 FFT algorithms), and the search
-picks the same PRNs, code phases and Doppler bins.
+picks the same PRNs, code phases and Doppler bins. The port's pilot +
+data search is gated to GLONASS L3OC: a single-code signal's cube is
+left as it is.
 """
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gnsstpu.acquisition import search as jsearch
@@ -15,6 +18,7 @@ from gnsstpu.ops import fft_acquire as jfft
 from gnsstpu.sim import IFSimulator, SatParams
 from gnsstpu_torch.acquisition import search as tsearch
 from gnsstpu_torch.ops import fft_acquire as tfft
+from gnsstpu_torch.signals.registry import get_signal
 from torch_port import one_torch_thread_per_worker  # noqa: F401
 from torch_port import to_port
 
@@ -76,3 +80,53 @@ def test_acquire_same_detections():
     np.testing.assert_allclose(got.peak_metric, ref.peak_metric, rtol=1e-3)
     assert tsearch.acq_samples_needed(to_port(SIG), to_port(acq)) == \
         jsearch.acq_samples_needed(SIG, acq)
+
+
+@pytest.mark.parametrize("signal,combines", [("gps_l1ca", False),
+                                             ("beidou_b1i", False),
+                                             ("galileo_e1b", False),
+                                             ("glonass_l3oc", True)])
+def test_only_pilot_and_data_signals_combine(signal, combines):
+    """The gate of the pilot + data search (a deviation from the
+    reference): on GLONASS L3OC, whose satellites send code prn + 32
+    beside the pilot code prn, each data code's power is added into its
+    pilot code's row at every (Doppler, lag) cell and the data rows stay;
+    on a single-code signal the cube is left bit for bit as it was."""
+    P = get_signal(signal).num_prn
+    cube = torch.rand((P, 3, 16), generator=torch.Generator().manual_seed(3))
+    before = cube.clone()
+    assert tsearch.combine_components(cube, signal) is combines
+    off = tsearch.data_code_offset(signal)
+    if not combines:
+        assert off is None and torch.equal(cube, before)
+        return
+    assert off == 32 and P == 63
+    assert torch.equal(cube[:P - off], before[:P - off] + before[off:])
+    assert torch.equal(cube[P - off:], before[P - off:])
+
+
+def test_single_code_search_does_not_combine():
+    """A GPS search through acquire: the cube is not combined, and the
+    result says so and counts the whole code bank."""
+    acq = AcqConfig(doppler_band=6e3, coherent_ms=2, threshold=2.4)
+    got = tsearch.acquire(_samples(), to_port(SIG), to_port(acq),
+                          device="cpu")
+    assert not got.combined and got.codes == get_signal("gps_l1ca").num_prn
+    assert got.detected_prns() == [3, 17]
+
+
+def test_code_spectra_are_made_once_and_shared():
+    """code_fd_tensor builds a signal's conj code spectra once a process
+    for each front end, coherent length and device, and hands every
+    caller that tensor: the reference's table, bit for bit."""
+    acq = to_port(AcqConfig(doppler_band=4e3, coherent_ms=2))
+    a = tsearch.code_fd_tensor(to_port(SIG), acq, "cpu")
+    assert tsearch.code_fd_tensor(to_port(SIG), acq, torch.device("cpu")) \
+        is a
+    fd_re, fd_im = jfft.code_fd_table(SIG.signal, SIG.fs, SIG.code_freq,
+                                      SIG.code_length, 2)
+    np.testing.assert_array_equal(a.real.numpy(), fd_re)
+    np.testing.assert_array_equal(a.imag.numpy(), fd_im)
+    other = tsearch.code_fd_tensor(
+        to_port(SIG), to_port(AcqConfig(coherent_ms=1)), "cpu")
+    assert other is not a and other.shape[1] == a.shape[1] // 2

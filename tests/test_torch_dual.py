@@ -16,15 +16,20 @@ tests/test_glonass_l3.py's fused-kernel size (R = 128 rows, blkp = 12002):
     exact; accumulators at K1's tolerances with the absolute part scaled
     to the 6x longer block (rtol 2e-3, atol 12); carrier Doppler 0.05 Hz;
     remainder 5e-4 chips; carrier phase within one LSB step per block;
-  * pilot acquisition: the same detections, code phases, Doppler bins;
+  * acquisition on pilot + data power with a 10 ms fine Doppler (the
+    port's deviations): the reference's cube with each data row added
+    into its pilot row gives the port's metrics, code phases and Doppler
+    bins, the reference's refine_doppler its carrier;
   * the ChannelManager with DualEngine (scan and fused twin) against
-    gnsstpu's on one satellite with compact readback: the same slots, the
+    gnsstpu's (asked for the 10 ms fine Doppler the port applies unasked)
+    on one satellite with compact readback: the same slots, the
     pilot and data prompt histories within rtol 2e-3 / atol 12, Doppler
     within 0.05 Hz, and one live_nav_unsupported event.
 The CUDA kernel itself is compared with the twin by the test marked
 `cuda` (skipped without a card) and by chip_smoke.py on the H100.
 """
 
+import dataclasses
 import io
 import json
 
@@ -39,6 +44,7 @@ from gnsstpu.config import (AcqConfig, NavConfig, ReceiverConfig,
                             SignalConfig, TrackConfig)
 from gnsstpu.nav import glonass_l3 as jl3nav
 from gnsstpu.nav.viterbi import conv_encode
+from gnsstpu.ops import fft_acquire as jfft
 from gnsstpu.ops.dualcode import correlate_block_dual as j_correlate
 from gnsstpu.runtime.manager import ChannelManager as JManager
 from gnsstpu.runtime.navigator import OnlineNavigator as JNavigator
@@ -319,14 +325,42 @@ def live_samples():
 
 
 def test_l3_pilot_acquisition_matches_reference(live_samples):
+    """The port detects each satellite on its pilot + data power and
+    refines its carrier over 10 ms with no fine Doppler configured (two
+    deviations; the reference detects on the pilot alone and hands over
+    the bin): the reference's own cube over the same windows, each data
+    code's row added into its pilot code's, through the reference's
+    peak_metrics, gives the port's metrics, code phases and Doppler bins,
+    and the reference's refine_doppler from that bin the port's carrier;
+    both detect the satellite."""
     acq = _acq()
-    x = live_samples[:jsearch.acq_samples_needed(SIG, acq)]
+    x = live_samples[:tsearch.acq_samples_needed(TSIG, to_port(acq))]
+    assert len(x) == (tsearch.DUAL_FINE_DOPPLER_MS + 1) * SPC
     ref = jsearch.acquire(x, SIG, acq)
     got = tsearch.acquire(x, TSIG, to_port(acq), device="cpu")
+    assert got.combined and got.codes == glonass_l3.NUM_PRN
     assert got.detected_prns() == ref.detected_prns() == [14]
-    np.testing.assert_array_equal(got.code_phase, np.asarray(ref.code_phase))
-    np.testing.assert_array_equal(got.carr_freq, ref.carr_freq)
-    np.testing.assert_allclose(got.peak_metric, ref.peak_metric, rtol=1e-3)
+    blocks, combine = jsearch._stack_windows(x, SPC, acq)
+    dopp = jfft.doppler_grid(SIG.if_freq, acq.doppler_band,
+                             acq.doppler_bin_step())
+    cube = np.array(jfft.acquire_cube(
+        blocks, *map(jnp.asarray, jfft.code_fd_table(
+            SIG.signal, SIG.fs, SIG.code_freq, SIG.code_length,
+            acq.coherent_ms)), jnp.asarray(dopp, jnp.float32), SIG.fs, SPC,
+        combine=combine))
+    off = glonass_l3.data_prn(1) - glonass_l3.pilot_prn(1)
+    cube[:glonass_l3.NUM_PRN - off] += cube[off:]
+    want = jfft.peak_metrics(jnp.asarray(cube), samples_per_code=SPC,
+                             samples_per_chip=round(SIG.fs / SIG.code_freq))
+    np.testing.assert_array_equal(got.code_phase,
+                                  np.asarray(want["code_phase"]))
+    carr = dopp[np.asarray(want["doppler_bin"])]
+    carr[13] = jsearch.refine_doppler(x, SIG, 14, int(got.code_phase[13]),
+                                      carr[13],
+                                      k_ms=tsearch.DUAL_FINE_DOPPLER_MS)
+    np.testing.assert_array_equal(got.carr_freq, carr)
+    np.testing.assert_allclose(got.peak_metric, np.asarray(want["metric"]),
+                               rtol=1e-3)
 
 
 def _events(sink, what):
@@ -343,7 +377,11 @@ def test_manager_matches_reference(live_samples, engine):
               sync_every=2, prefetch=True, readback="compact",
               engine=engine, prn_pool=[14, 20])
     jsink, tsink = io.StringIO(), io.StringIO()
-    jm = JManager(JPacked(live_samples, fmt="sm2"), cfg,
+    # The port refines an L3OC handoff's carrier over 10 ms unasked (a
+    # deviation): the reference is asked to.
+    jcfg = dataclasses.replace(cfg, acq=dataclasses.replace(
+        cfg.acq, fine_doppler_ms=tsearch.DUAL_FINE_DOPPLER_MS))
+    jm = JManager(JPacked(live_samples, fmt="sm2"), jcfg,
                   telemetry=JTelemetry(sink=jsink),
                   navigator=JNavigator(SIG, cfg.nav), **kw)
     jr = jm.run(n_ms)

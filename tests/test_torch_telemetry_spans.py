@@ -7,7 +7,9 @@ pipelined or not, emits the same telemetry with tracing off and on; on,
 every superepoch has its spans under one key, the task_health walls are
 the spans' walls, and under torch.profiler each nesting span is one
 gnss.<name> range of its duration. `track --profile DIR` writes the
-spans beside the trace.
+spans beside the trace. The search spans count the code rows searched
+and whether pilot and data powers were summed (GPS and a small L3OC
+run); K1's and K3's CUDA events become the superepoch's counters.
 """
 
 import json
@@ -26,6 +28,7 @@ from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.navigator import OnlineNavigator
 from gnsstpu_torch.runtime.sources import PackedArraySource
 from gnsstpu_torch.runtime.telemetry import Telemetry
+from gnsstpu_torch.signals import glonass_l3
 from gnsstpu_torch.sim import IFSimulator, SatParams
 from torch_port import one_torch_thread_per_worker  # noqa: F401
 
@@ -318,3 +321,88 @@ def test_track_profile_writes_spans(samples, tmp_path, capsys):
                                           "feed.upload", "manager.build"}
     assert all(set(s) == {"name", "id", "parent", "se", "thread", "t0_ns",
                           "t1_ns", "counters"} for s in spans)
+
+
+L3SIG = SignalConfig(signal="glonass_l3oc", if_freq=0.0, fs=12.0e6,
+                     code_freq=glonass_l3.CODE_FREQ,
+                     code_length=glonass_l3.CODE_LENGTH, complex_iq=True)
+
+
+def _l3_samples(n_ms: int) -> np.ndarray:
+    """One L3OC satellite (PRN 14): pilot code x NH(10) and, in
+    quadrature, data code x Barker(5) (all-ones symbols), 50 dB-Hz."""
+    truth = dict(doppler_hz=1320.0, code_phase_chips=2345.5, cn0_dbhz=50.0)
+    sats = [SatParams(prn=glonass_l3.pilot_prn(14), carrier_phase=0.0,
+                      nav_bits=np.resize(glonass_l3.NH10.astype(np.float32),
+                                         n_ms), **truth),
+            SatParams(prn=glonass_l3.data_prn(14), carrier_phase=np.pi / 2,
+                      nav_bits=np.resize(
+                          glonass_l3.BARKER5.astype(np.float32), n_ms),
+                      **truth)]
+    return IFSimulator(L3SIG, sats, noise_sigma=1.0, seed=4,
+                       device="cpu").generate(n_ms)
+
+
+@pytest.mark.parametrize("family", ["gps_l1ca", "glonass_l3oc"])
+def test_search_spans_count_codes_and_combined(samples, family):
+    """Each search span says how many code rows it correlated (codes) and
+    whether each satellite's pilot and data powers were summed
+    (combined): the searches of a GPS run (its host search; both
+    satellites are found there) correlate GPS's 32 codes and do not
+    combine; those of an L3OC run (the host search, then on-chunk
+    searches for the absent PRN 20) correlate its 63 codes (31 pilot, 32
+    data rows) and combine. The
+    superepoch spans carry no kernel counters on the CPU (the plain
+    twins launch nothing)."""
+    if family == "gps_l1ca":
+        _, tlm = _run(samples, True, True)
+        want = {"codes": 32, "combined": 0}
+    else:
+        cfg = ReceiverConfig(
+            signal=L3SIG,
+            acq=AcqConfig(doppler_band=3000.0, coherent_ms=1, threshold=2.5,
+                          doppler_step=250.0, prn_list=(14, 20)),
+            track=TrackConfig(dll_bw=1.0, el_spacing=0.3, pll_bw=25.0,
+                              fll_bw=250.0, aid_div=glonass_l3.CARRIER_HZ
+                              / glonass_l3.CODE_FREQ),
+            nav=NavConfig(), n_channels=2)
+        tlm = Telemetry(trace=True)
+        mgr = ChannelManager(
+            PackedArraySource(_l3_samples(420), fmt="sm2"), cfg,
+            device="cpu", telemetry=tlm, epoch_ms=100, reacq_period_ms=200,
+            prn_pool=[14, 20], sync_every=2, engine="fused",
+            prefetch=True, readback="compact")
+        mgr.run(400)
+        assert [s.prn for s in mgr.slots][:1] == [14]
+        want = {"codes": 63, "combined": 1}
+    spans = tlm.spans
+    for name in ("acq.host_search", "acq.chunk_search"):
+        got = [s["counters"] for s in spans if s["name"] == name]
+        assert all(c == want for c in got), (name, got)
+        assert got or (family, name) == ("gps_l1ca", "acq.chunk_search")
+    sup = [s["counters"] for s in spans if s["name"] == "superepoch"]
+    assert sup and all(c == {} for c in sup)
+
+
+class _Event:
+    def __init__(self, ms):
+        self.ms = ms
+
+    def elapsed_time(self, end):
+        return end.ms - self.ms
+
+
+def test_kernel_event_counters():
+    """The superepoch span's kernel counters from timed_launches' events:
+    per kernel that launched, its launches and their summed device time
+    in ns (K1 as k1_*, K3 as k3_*)."""
+    ev = [("track_chunk_fused", _Event(0.0), _Event(0.75)),
+          ("track_chunk_dual_fused", _Event(1.0), _Event(3.5)),
+          ("track_chunk_fused", _Event(4.0), _Event(4.7)),
+          ("track_chunk_dual_fused", _Event(5.0), _Event(7.6))]
+    assert track_kernel.event_counters(ev) == {
+        "k1_launches": 2, "k1_device_ns": 1_450_000,
+        "k3_launches": 2, "k3_device_ns": 5_100_000}
+    assert track_kernel.event_counters(ev[:1]) == {
+        "k1_launches": 1, "k1_device_ns": 750_000}
+    assert track_kernel.event_counters([]) == {}
