@@ -111,6 +111,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
  13. the GLONASS L3OC main path with its end-to-end checks (every sky
      satellite tracked, Doppler and C/N0, overlay sync, the data bits
      bit-exact, K3 launched and K1 / K2 not) and K3's share of the wall;
+ 41. (printed after 13) the L3OC on-chunk search on phase 13's signal at
+     its shape, for every pilot PRN (the whole 63-code bank), the pool
+     and the two absent PRNs: code rows, ms per search (CUDA events) and
+     device memory beyond what was allocated before it, each; the absent
+     PRNs' lanes must be equal in all three and the last search's other
+     lanes 0;
  14. K1 alone (no twin) at the BeiDou and GLONASS launch shapes, C=12 x
      100 blocks (100 ms epochs) and x 500, at blkp 4,098 and 8,194, each
      beside its bound;
@@ -416,6 +422,9 @@ K3_TOL = {"acc_rtol": 2e-3, "acc_atol": 24.0, "carr_doppler": 0.05,
 #: Data bits per L3OC satellite: one rate-1/2 codeword of 2 * (24 + 6)
 #: symbols, 300 ms under the Barker(5) overlay, repeated.
 L3_BITS = 24
+#: The L3OC main path's sky and its absent pool PRNs (the cell's layout).
+L3_SKY = [3, 7, 11, 14, 18, 22, 26, 30]
+L3_ABSENT = [5, 9]
 #: Start of a slot's prompt history left out of the L3 checks: the
 #: 2-quadrant FLL pulls a handoff error of up to half a 250 Hz bin in
 #: within ~1 s (the reference test's 50 Hz handoff settles in 200 ms).
@@ -1162,8 +1171,7 @@ def l3_main_path(device, k3_ms: float, src=None, mesh=None) -> tuple:
     of the manager)."""
     seconds, n_channels, epoch_ms, sync_every = 9, 12, 500, 2
     n_ms, meas_ms = seconds * 1000, 6000
-    prns = [3, 7, 11, 14, 18, 22, 26, 30]
-    absent = [5, 9]
+    prns, absent = L3_SKY, L3_ABSENT
     rng = np.random.default_rng(31)
     dopp = rng.permutation(np.linspace(-3600.0, 3600.0, len(prns)))
     rates = rng.uniform(-0.55, 0.55, len(prns))
@@ -1287,8 +1295,8 @@ def k1_family_path(device, *, sig, trk, acq, sats, sky, absent, recv,
     searches = []
     chunk_search = mgr._chunk_search
 
-    def counted(chunk, base, need_len):
-        out = chunk_search(chunk, base, need_len)
+    def counted(chunk, base, need_len, want):
+        out = chunk_search(chunk, base, need_len, want)
         if out[0] is not None:
             searches.append(base)
         return out
@@ -1417,13 +1425,16 @@ def glonass_main_path(device, k1_ms: float) -> tuple:
         retry_ms=300, confirm_epochs=6, reacq_period_ms=2000, k1_ms=k1_ms)
 
 
-def chunk_search_ms(mgr, reps: int = 10) -> dict:
-    """A live manager's on-chunk search on its source's first chunk: ms
-    per search (CUDA events after a warm-up) and the device memory it
-    takes beyond what is allocated before it."""
+def chunk_search_ms(mgr, want=None, reps: int = 10) -> tuple:
+    """A live manager's on-chunk search for the PRNs in `want` (default:
+    its pool) on its source's first chunk: ms per search (CUDA events
+    after a warm-up) and the device memory it takes beyond what is
+    allocated before it. Returns (that record, the search's [3, P] lanes
+    on the host)."""
+    want = list(mgr.pool if want is None else want)
     chunk = mgr._to_device(mgr.source.read_packed(0, mgr._chunk_len))
     search = mgr._make_acq_chunk_fn()
-    search(chunk)
+    lanes = search(chunk, want).cpu().numpy()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1431,7 +1442,7 @@ def chunk_search_ms(mgr, reps: int = 10) -> dict:
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(reps):
-        search(chunk)
+        search(chunk, want)
     t1.record()
     torch.cuda.synchronize()
     return {"ms": t0.elapsed_time(t1) / reps,
@@ -1439,7 +1450,42 @@ def chunk_search_ms(mgr, reps: int = 10) -> dict:
             / 2 ** 20,
             "grid_rows": int(len(mgr._acq_doppler)
                              * (mgr.sd.num_prn if mgr._acq_offs is not None
-                                else 1))}
+                                else 1))}, lanes
+
+
+def l3_chunk_search_path(device, src) -> dict:
+    """The L3OC on-chunk search at the live cell's shape (24 Msps, 1 ms,
+    33 Doppler bins, 2 windows) on `src`'s first chunk, timed by CUDA
+    events for three `want`s: every pilot PRN (the whole 63-code bank),
+    the pool (sky + absent) and the two absent PRNs. Each reads the
+    absent PRNs' lanes; their mismatches between the searches, and the
+    nonzero lanes of PRNs the last did not search, are failures."""
+    cfg = ReceiverConfig(
+        signal=LSIG,
+        acq=AcqConfig(doppler_band=8e3, coherent_ms=1, threshold=2.5,
+                      doppler_step=250.0),
+        track=LTRK, nav=NavConfig(), n_channels=12)
+    pool = L3_SKY + L3_ABSENT
+    mgr = ChannelManager(src, cfg, device=device, epoch_ms=500,
+                         sync_every=2, prn_pool=pool, prefetch=True,
+                         readback="compact", engine="auto")
+    P = mgr.sd.num_prn
+    rows = [p - 1 for p in L3_ABSENT]
+    out, lanes = {}, {}
+    for tag, want in (("bank", range(1, 33)), ("pool", pool),
+                      ("absent", L3_ABSENT)):
+        rec, lanes[tag] = chunk_search_ms(mgr, want)
+        rec["codes"] = len(search.bank_rows(LSIG.signal, P, want)[0])
+        out[tag] = rec
+    del mgr
+    out["absent_lanes"] = lanes["absent"][:, rows].tolist()
+    out["failed"] = [
+        f"absent PRNs' lanes differ: {tag} / absent" for tag in ("bank",
+                                                                 "pool")
+        if not np.array_equal(lanes[tag][:, rows], lanes["absent"][:, rows])
+    ] + (["a PRN not searched reads nonzero"]
+         if np.delete(lanes["absent"], rows, axis=1).any() else [])
+    return out
 
 
 def weak_tier_path(device) -> dict:
@@ -3893,6 +3939,14 @@ def main() -> int:
         raise AssertionError(f"glonass l3oc main path checks failed: "
                              f"{failed} (modules: {refused[:5]})")
 
+    # 41. The L3OC on-chunk search: the whole bank, the pool, the absent.
+    lsearch = l3_chunk_search_path(dev, l3_src)
+    print(f"[41 glonass l3oc on-chunk search] {json.dumps(lsearch)}",
+          flush=True)
+    if lsearch["failed"]:
+        raise AssertionError(f"glonass l3oc on-chunk search: "
+                             f"{lsearch['failed']}")
+
     # 14. K1 alone at the BeiDou and GLONASS launch shapes.
     k1_new = {f"{tag} C=12x{n}": k1_alone(12, n, dev, sig, trk)
               for tag, sig, trk in (("BeiDou B1I 4.096 Msps", BSIG, BTRK),
@@ -3912,7 +3966,7 @@ def main() -> int:
     # 16. GLONASS L1OF main path and its on-chunk FDMA search.
     ores, omgr = glonass_main_path(
         dev, k1_new["GLONASS L1OF 8.192 Msps C=12x100"]["ms"])
-    osearch = chunk_search_ms(omgr)
+    osearch, _ = chunk_search_ms(omgr)
     del omgr
     print(f"[16 glonass l1of main path] {json.dumps(ores)} | on-chunk "
           f"FDMA search (14 channels x {OSIG.fs / 1e6:g} Msps, 2 x 2 ms "

@@ -62,20 +62,41 @@ def data_code_offset(signal: str) -> Optional[int]:
     return glonass_l3.data_prn(1) - glonass_l3.pilot_prn(1)
 
 
-def combine_components(cube: torch.Tensor, signal: str) -> bool:
-    """In place on a [P, D, S] power cube of the whole code bank: add
-    each data code's power into its pilot code's row at every (Doppler,
-    lag) cell, for a signal that sends both (data_code_offset); the data
-    rows are left as they are. The two codes share the carrier and the
-    code start, and neither overlay flips inside a window that starts at
-    the code start, so the pilot row then holds the satellite's whole
-    power. Returns whether it combined (False: the cube is untouched)."""
+def combine_components(cube: torch.Tensor, signal: str,
+                       first_data: Optional[int] = None) -> bool:
+    """In place on a [R, D, S] power cube: add each data code's power
+    into its pilot code's row at every (Doppler, lag) cell, for a signal
+    that sends both (data_code_offset); the data rows are left as they
+    are. The two codes share the carrier and the code start, and neither
+    overlay flips inside a window that starts at the code start, so the
+    pilot row then holds the satellite's whole power. The cube's rows are
+    the whole code bank (first_data None), or bank_rows' rows with
+    first_data its index of the first data row. Returns whether it
+    combined (False: the cube is untouched)."""
     off = data_code_offset(signal)
     if off is None:
         return False
-    n = cube.shape[0] - off
-    cube[:n] += cube[off:]
+    start = off if first_data is None else first_data
+    cube[:cube.shape[0] - start] += cube[start:]
     return True
+
+
+def bank_rows(signal: str, num_prn: int, prns) -> tuple:
+    """(rows, first_data): the code-bank rows a search for `prns` needs,
+    for combine_components. rows: each PRN's pilot row p - 1, ascending,
+    then, for a signal that sends a data code (data_code_offset), the
+    data row p - 1 + offset of each pilot that has one in the bank, in the
+    same order, which makes the pilots with a data row the leading ones;
+    the whole bank instead where that is no fewer rows. first_data: the
+    index of the first data row in rows (None: no data code)."""
+    pilots = sorted({p - 1 for p in prns})
+    off = data_code_offset(signal)
+    if off is None:
+        return pilots, None
+    rows = pilots + [r + off for r in pilots if r + off < num_prn]
+    if len(rows) >= num_prn:
+        return list(range(num_prn)), off
+    return rows, len(pilots)
 
 
 #: Code periods of fine Doppler before a pilot + data signal's handoff

@@ -29,11 +29,13 @@ f32 Doppler + stats).
 Acquisition is FFT search over a grid built in one place (_acq_grid): the
 all-PRN code bank against a Doppler grid (CDMA), or one shared code row
 against the flattened [frequency channel x Doppler] carrier grid (GLONASS
-L1/L2 OF, FDMA). A due search rides the superepoch's uploaded chunk; a
-noncoherent ('sum') search longer than one chunk accumulates its power
-cube on the device across consecutive chunks (the weak tier). The live
-channel bank saves to and restores from a checkpoint file (the reference's
-npz + JSON format) for a warm restart without reacquisition.
+L1/L2 OF, FDMA). A due search rides the superepoch's uploaded chunk; on a
+CDMA bank it correlates only the code rows of the PRNs it is for
+(bank_rows). A noncoherent ('sum') search longer than one chunk
+accumulates its whole-bank power cube on the device across consecutive
+chunks (the weak tier). The live channel bank saves to and restores from
+a checkpoint file (the reference's npz + JSON format) for a warm restart
+without reacquisition.
 
 With a mesh (parallel.make_mesh), the slot bank's channel rows and the
 tracking state are split over mesh["channel"]: slot i lives on shard
@@ -78,8 +80,8 @@ from gnsstpu_torch.runtime.telemetry import Telemetry
 from gnsstpu_torch.signals.registry import get_signal
 from gnsstpu_torch.acquisition.search import (
     AcqResults, _windows_of, acq_samples_needed, acquire, acquire_fdma,
-    code_fd_tensor, combine_components, fdma_grid, fine_doppler_ms,
-    refine_doppler)
+    bank_rows, code_fd_tensor, combine_components, fdma_grid,
+    fine_doppler_ms, refine_doppler)
 from gnsstpu_torch.device import U32_MASK, resolve_device
 from gnsstpu_torch.ops import fft_acquire, summary_kernel, track_kernel
 from gnsstpu_torch.ops import unpack as up
@@ -654,8 +656,13 @@ class ChannelManager:
     def _make_acq_chunk_fn(self):
         """Cold search over the leading window of an uploaded device
         chunk: reacquisition rides the superepoch's transfer (grid:
-        _acq_grid). Returns search(chunk) -> f32 [3, P] (metric,
-        code_phase, doppler_bin)."""
+        _acq_grid). Returns search(chunk, want) -> f32 [3, P] (metric,
+        code_phase, doppler_bin). A CDMA search correlates only the code
+        rows of the PRNs in `want` (bank_rows: their pilot rows and the
+        data rows summed into them), the same numbers for those PRNs as a
+        search of the whole bank; the lanes of the other PRNs read 0
+        unless that is the whole bank. FDMA searches its one shared code
+        over every channel whatever `want`."""
         acq = self.cfg.acq
         sig = self.sig
         spc = sig.samples_per_code
@@ -663,17 +670,39 @@ class ChannelManager:
         L = acq.coherent_ms * spc
         Lw = fft_acquire.window_len(spc, acq.coherent_ms)
         code_fd, grid, fdma, K, D, spchip = self._acq_grid()
+        memo = {}   # the last want's (n_rows, first_data, sub-bank, pilots)
 
-        def search(chunk):
+        def bank(want):
+            if fdma:
+                return code_fd.shape[0], None, code_fd, None
+            key = tuple(sorted(set(want)))
+            if key not in memo:
+                rows, first = bank_rows(sig.signal, K, key)
+                if len(rows) == K:
+                    sub, pilots = code_fd, None
+                else:
+                    sub = code_fd.index_select(0, torch.as_tensor(
+                        rows, device=code_fd.device))
+                    pilots = torch.as_tensor([p - 1 for p in key],
+                                             device=code_fd.device)
+                memo.clear()
+                memo[key] = (len(rows), first, sub, pilots)
+            return memo[key]
+
+        def search(chunk, want):
             blocks = torch.stack([chunk[k * L: k * L + Lw]
                                   for k in range(B)])
-            cube = fft_acquire.acquire_cube(blocks, code_fd, grid, sig.fs,
+            n_rows, first, sub, pilots = bank(want)
+            cube = fft_acquire.acquire_cube(blocks, sub, grid, sig.fs,
                                             spc, combine=combine)
             if fdma:
                 cube = cube.reshape(K, D, spc)
-            both = combine_components(cube, sig.signal)
-            self.tlm.count(codes=code_fd.shape[0], combined=int(both))
-            return self._peak_lanes(cube, spc, spchip)
+            both = combine_components(cube, sig.signal, first)
+            self.tlm.count(codes=n_rows, combined=int(both))
+            if pilots is None:
+                return self._peak_lanes(cube, spc, spchip)
+            lanes = self._peak_lanes(cube[:len(pilots)], spc, spchip)
+            return lanes.new_zeros((3, K)).index_copy_(1, pilots, lanes)
 
         return search
 
@@ -775,16 +804,18 @@ class ChannelManager:
             return ("done", lanes, base0)
         return ("pending", None, 0)
 
-    def _chunk_search(self, chunk_dev, base: int, need_len: int):
-        """A due search against an uploaded chunk: the full search when
-        it fits the chunk (an accumulation in progress is then stale),
-        else one weak-tier step. Returns (device [3, P] metrics or None,
-        their base, host-path fallback wanted)."""
+    def _chunk_search(self, chunk_dev, base: int, need_len: int,
+                      want: list):
+        """A due search for the PRNs in `want` against an uploaded chunk:
+        the full search when it fits the chunk (an accumulation in
+        progress is then stale), else one weak-tier step (the whole
+        bank). Returns (device [3, P] metrics or None, their base,
+        host-path fallback wanted)."""
         if need_len >= self._acq_samples_needed_chunk():
             self._acq_wk = None
             if self._acq_chunk_fn is None:
                 self._acq_chunk_fn = self._make_acq_chunk_fn()
-            return self._acq_chunk_fn(chunk_dev), base, False
+            return self._acq_chunk_fn(chunk_dev, want), base, False
         st, lanes, base0 = self._wk_step(chunk_dev, base, need_len)
         if st == "done":
             return lanes, base0, False
@@ -1049,7 +1080,7 @@ class ChannelManager:
             if (acq_due or self._acq_wk is not None) and want and have_idle:
                 with tlm.span("acq.chunk_search"):
                     lanes, acq_base, host = self._chunk_search(
-                        chunk_dev, base, need_len)
+                        chunk_dev, base, need_len, want)
                 if lanes is not None:
                     acq_fut = _Readback([lanes])
                 acq_host_fallback = host and acq_due
@@ -1167,7 +1198,7 @@ class ChannelManager:
                 if want and have_idle:
                     with tlm.span("acq.chunk_search"):
                         lanes, acq_base, host = self._chunk_search(
-                            chunk.dev, chunk.base, chunk.need_len)
+                            chunk.dev, chunk.base, chunk.need_len, want)
                     if lanes is not None:
                         acq_fut = _Readback([lanes])
                     acq_host = host and acq_due

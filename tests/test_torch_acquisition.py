@@ -4,7 +4,8 @@ Same samples (JAX IFSimulator on the CPU): the power cube agrees to
 rtol 1e-3 of its peak (two different f32 FFT algorithms), and the search
 picks the same PRNs, code phases and Doppler bins. The port's pilot +
 data search is gated to GLONASS L3OC: a single-code signal's cube is
-left as it is.
+left as it is. The live manager's on-chunk search for a few PRNs
+correlates only their code rows and reads what the whole bank reads.
 """
 
 import jax.numpy as jnp
@@ -16,8 +17,14 @@ from gnsstpu.acquisition import search as jsearch
 from gnsstpu.config import AcqConfig, SignalConfig
 from gnsstpu.ops import fft_acquire as jfft
 from gnsstpu.sim import IFSimulator, SatParams
+from gnsstpu_torch import config as tconfig
+from gnsstpu_torch import sim as tsim
 from gnsstpu_torch.acquisition import search as tsearch
 from gnsstpu_torch.ops import fft_acquire as tfft
+from gnsstpu_torch.runtime.manager import ChannelManager
+from gnsstpu_torch.runtime.sources import ArraySource
+from gnsstpu_torch.runtime.telemetry import Telemetry
+from gnsstpu_torch.signals import glonass_l3
 from gnsstpu_torch.signals.registry import get_signal
 from torch_port import one_torch_thread_per_worker  # noqa: F401
 from torch_port import to_port
@@ -130,3 +137,71 @@ def test_code_spectra_are_made_once_and_shared():
     other = tsearch.code_fd_tensor(
         to_port(SIG), to_port(AcqConfig(coherent_ms=1)), "cpu")
     assert other is not a and other.shape[1] == a.shape[1] // 2
+
+
+L3SIG = tconfig.SignalConfig(signal="glonass_l3oc", if_freq=0.0, fs=12.0e6,
+                             code_freq=glonass_l3.CODE_FREQ,
+                             code_length=glonass_l3.CODE_LENGTH,
+                             complex_iq=True)
+
+
+def _l3_sats():
+    """Satellites 8 and 20, each its pilot code and, in quadrature at
+    equal power, its data code."""
+    sats = []
+    for prn, fd, cp in ((8, -1750.0, 4100.25), (20, 1320.0, 2345.5)):
+        for code, ph in ((glonass_l3.pilot_prn(prn), 0.0),
+                         (glonass_l3.data_prn(prn), np.pi / 2)):
+            sats.append(tsim.SatParams(prn=code, doppler_hz=fd,
+                                       code_phase_chips=cp, cn0_dbhz=47.0,
+                                       carrier_phase=ph))
+    return sats
+
+
+@pytest.mark.parametrize("signal,want,codes", [
+    ("gps_l1ca", [3], 1),
+    ("gps_l1ca", [3, 9, 17, 30], 4),
+    ("glonass_l3oc", [20], 2),            # pilot 20 + data 52
+    ("glonass_l3oc", [32], 1),            # no data code beside 32
+    ("glonass_l3oc", [8, 20, 31, 32, 40], 8),  # 40: also 8's data code
+])
+def test_chunk_search_for_wanted_prns_reads_the_whole_bank(signal, want,
+                                                          codes):
+    """The manager's on-chunk search run for `want` correlates only the
+    code rows of those PRNs (pilot rows, and on L3OC the data rows summed
+    into them), and reads for each of them the metric, code phase and
+    Doppler bin that the search of the whole bank reads (bit for bit on
+    the CPU); every other PRN's lanes read 0."""
+    if signal == "gps_l1ca":
+        sig = to_port(SIG)
+        sats = [tsim.SatParams(prn=s.prn, doppler_hz=s.doppler_hz,
+                               code_phase_chips=s.code_phase_chips,
+                               cn0_dbhz=s.cn0_dbhz) for s in SATS]
+        acq = tconfig.AcqConfig(doppler_band=6e3, coherent_ms=2,
+                                threshold=2.4)
+    else:
+        sig, sats = L3SIG, _l3_sats()
+        acq = tconfig.AcqConfig(doppler_band=4e3, coherent_ms=1,
+                                threshold=2.5, doppler_step=250.0)
+    x = tsim.IFSimulator(sig, sats, noise_sigma=1.0, seed=5,
+                         device="cpu").generate(6)
+    P = get_signal(signal).num_prn
+    tlm = Telemetry(trace=True)
+    mgr = ChannelManager(
+        ArraySource(x), tconfig.ReceiverConfig(signal=sig, acq=acq,
+                                               n_channels=2),
+        device="cpu", epoch_ms=2, telemetry=tlm)
+    search = mgr._make_acq_chunk_fn()
+    chunk = torch.as_tensor(np.asarray(x, np.float32))
+    with tlm.span("acq.chunk_search"):
+        whole = search(chunk, list(range(1, P + 1))).numpy()
+    with tlm.span("acq.chunk_search"):
+        got = search(chunk, want).numpy()
+    assert [s["counters"]["codes"] for s in tlm.spans
+            if s["name"] == "acq.chunk_search"] == [P, codes]
+    rows = [p - 1 for p in want]
+    np.testing.assert_array_equal(got[:, rows], whole[:, rows])
+    rest = np.setdiff1d(np.arange(P), rows)
+    assert not got[:, rest].any()
+    assert (got[0, rows] > acq.threshold).tolist() == [
+        p in (3, 17, 8, 20) for p in want]

@@ -349,14 +349,14 @@ def test_search_spans_count_codes_and_combined(samples, family):
     whether each satellite's pilot and data powers were summed
     (combined): the searches of a GPS run (its host search; both
     satellites are found there) correlate GPS's 32 codes and do not
-    combine; those of an L3OC run (the host search, then on-chunk
-    searches for the absent PRN 20) correlate its 63 codes (31 pilot, 32
-    data rows) and combine. The
-    superepoch spans carry no kernel counters on the CPU (the plain
+    combine; in an L3OC run the host search correlates its 63 codes (pilot
+    rows 1-32, data rows 33-63) and the on-chunk searches for the absent
+    PRN 20 its pilot row and its data row (PRN 52), and each combines.
+    The superepoch spans carry no kernel counters on the CPU (the plain
     twins launch nothing)."""
     if family == "gps_l1ca":
         _, tlm = _run(samples, True, True)
-        want = {"codes": 32, "combined": 0}
+        want = {"acq.host_search": {"codes": 32, "combined": 0}}
     else:
         cfg = ReceiverConfig(
             signal=L3SIG,
@@ -374,12 +374,13 @@ def test_search_spans_count_codes_and_combined(samples, family):
             prefetch=True, readback="compact")
         mgr.run(400)
         assert [s.prn for s in mgr.slots][:1] == [14]
-        want = {"codes": 63, "combined": 1}
+        want = {"acq.host_search": {"codes": 63, "combined": 1},
+                "acq.chunk_search": {"codes": 2, "combined": 1}}
     spans = tlm.spans
     for name in ("acq.host_search", "acq.chunk_search"):
         got = [s["counters"] for s in spans if s["name"] == name]
-        assert all(c == want for c in got), (name, got)
-        assert got or (family, name) == ("gps_l1ca", "acq.chunk_search")
+        assert all(c == want[name] for c in got), (name, got)
+        assert bool(got) == (name in want), (name, got)
     sup = [s["counters"] for s in spans if s["name"] == "superepoch"]
     assert sup and all(c == {} for c in sup)
 
