@@ -18,11 +18,15 @@ launch of ops.summary_kernel's kernel, which writes the epoch's slot of
 the superepoch's readback buffer), and the readback is one host copy per
 superepoch.
 
-Pipelined superepochs (sync_every > 1) batch k supervision epochs into
-one upload + k dispatches + one readback. prefetch=True lets the device
-run free: a reader thread reads and uploads chunk n+1 while chunk n runs
-and the host supervises chunk n-1 (one more superepoch of decision lag).
-readback='compact' ships the per-block observables as one byte-packed
+A superepoch (sync_every epochs) is one upload + k dispatches + one
+readback, and each of its steps is written once; two drivers call them.
+The serial one rebases every slot row from the host and supervises each
+superepoch before the next. With prefetch=True and sync_every > 1 the
+pipeline lets the device run free: a reader thread reads and uploads
+chunk n+1 while chunk n runs and the host supervises chunk n-1 (one more
+superepoch of decision lag); the rows carry across superepochs, shifted
+by the base delta, and slots placed by a supervision start one
+superepoch later. readback='compact' ships the per-block observables as one byte-packed
 buffer (f16 prompts, pilot and data for L3OC, u16 rem, i16 blksize delta,
 f32 Doppler + stats).
 
@@ -148,7 +152,10 @@ class _Readback:
 
 @dataclasses.dataclass
 class _Inflight:
-    """A dispatched-but-unsupervised superepoch (prefetch pipeline)."""
+    """A dispatched, not yet supervised superepoch of either driver: what
+    the dispatch issued and the spans that timed it. The serial driver
+    supervises it at once; the pipeline one superepoch later, its
+    readback decoded on the fetch thread (fetch)."""
 
     e0: int
     k: int
@@ -939,20 +946,13 @@ class ChannelManager:
         if self.readback != "compact":
             return raw[0], raw[1]
         dual = self.eng.has_data_component
-        buf = raw[0]
-        P = 4 if dual else 2
         E, C = self._bpe, self.cfg.n_channels
-        per_k = E * C * (2 * P + 2 + 2 + 4) + C * 16
-        K = buf.size // per_k
-        n = [K * E * C * P * 2, K * E * C * 2, K * E * C * 2,
-             K * E * C * 4, K * C * 16]
-        o = np.cumsum([0] + n)
-        pp = np.frombuffer(buf[o[0]:o[1]], np.float16).reshape(K, E, C, P)
-        rem = (np.frombuffer(buf[o[1]:o[2]], np.uint16).reshape(K, E, C)
-               .astype(np.float32) / np.float32(65535.0))
-        blkd = np.frombuffer(buf[o[2]:o[3]], np.int16).reshape(K, E, C)
-        dopp = np.frombuffer(buf[o[3]:o[4]], np.float32).reshape(K, E, C)
-        st = np.frombuffer(buf[o[4]:o[5]], np.float32).reshape(K, C, 4)
+        buf = torch.from_numpy(raw[0])
+        K = buf.numel() // sum(summary_kernel.compact_sizes(1, E, C, dual))
+        pp, rem, blkd, dopp, st = (v.numpy() for v in
+                                   summary_kernel.compact_views(
+                                       buf, K, E, C, dual))
+        rem = rem.view(np.uint16).astype(np.float32) / np.float32(65535.0)
         spc = np.float32(self.sig.samples_per_code)
         streams = np.empty((K, E, C, 7 if dual else 5), np.float32)
         streams[..., self._S_IP] = pp[..., 0].astype(np.float32) * spc
@@ -966,7 +966,11 @@ class ChannelManager:
             streams[..., self._S_QP2] = pp[..., 3].astype(np.float32) * spc
         return streams, st
 
-    # --- main loop ---
+    # --- main loop: one superepoch body, two drivers ---
+    #
+    # Each step of a superepoch is written once (_cold_search, _rebase,
+    # _dispatch_superepoch with _due_search, _materialize, _stage_health,
+    # _finish_search); _run_superepoch and _run_pipelined drive them.
 
     def run(self, n_ms: int) -> List[EpochRecord]:
         """Process n_ms of signal. Epoch labels form one monotonic
@@ -991,154 +995,69 @@ class ChannelManager:
         """Receiver-clock milliseconds processed so far."""
         return self._clock_epochs * self.epoch_ms
 
-    def _run_superepoch(self, e0: int, k: int) -> bool:
-        """Process k supervision epochs in one device round trip.
-        Returns False to stop (end of data / commanded stop)."""
-        tlm = self.tlm
-        epoch_ms0 = e0 * self.epoch_ms
-        if self.commands is not None:
-            self._apply_commands(epoch_ms0)
-        if self._stop:
-            self.tlm.event(epoch_ms0, "commanded_stop")
-            return False
-        active = [i for i, s in enumerate(self.slots)
-                  if s.state is not SlotState.IDLE]
-        acq_due = epoch_ms0 >= self._next_reacq_ms
-        if acq_due and not active:
-            with tlm.span("acq.host_search", se=epoch_ms0) as acq:
-                self._try_acquire(epoch_ms0)
-            tlm.task_health(epoch_ms0, "acquire", acq.wall_s)
-            self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
-            acq_due = False
-            active = [i for i, s in enumerate(self.slots)
-                      if s.state is not SlotState.IDLE]
-        if not active:
-            self._cursor += k * self._espc
-            self._watchdog()
-            return True
+    def _active(self) -> list:
+        return [i for i, s in enumerate(self.slots)
+                if s.state is not SlotState.IDLE]
 
+    def _commanded_stop(self, epoch_ms: int) -> bool:
+        """Apply the runtime commands at a superepoch boundary; True (and
+        a commanded_stop record) once a stop was commanded."""
+        if self.commands is not None:
+            self._apply_commands(epoch_ms)
+        if self._stop:
+            self.tlm.event(epoch_ms, "commanded_stop")
+        return self._stop
+
+    def _host_search(self, se: int, epoch_ms: int) -> None:
+        """The host-path search for slots starting at epoch_ms, in its
+        acq.host_search span (key se), and its acquire record."""
+        with self.tlm.span("acq.host_search", se=se) as acq:
+            self._try_acquire(epoch_ms)
+        self.tlm.task_health(epoch_ms, "acquire", acq.wall_s)
+
+    def _cold_search(self, epoch_ms: int) -> list:
+        """A due search with nothing tracking: the host path, over its own
+        window. Returns the active slots."""
+        self._host_search(epoch_ms, epoch_ms)
+        self._next_reacq_ms = epoch_ms + self.reacq_period_ms
+        return self._active()
+
+    def _base(self, active: list) -> int:
+        """Chunk base of a host rebase: the earliest active slot,
+        aligned to the wire format."""
         base = int(min(self._abs_pos[i] for i in active))
         if self.wire is not None:
             base -= base % up.align(self.wire)
+        return base
+
+    def _rebase(self, base: int, active: list, epoch_ms: int) -> np.ndarray:
+        """Every slot's sample_pos relative to base; idle slots start at
+        base. A channel drifted past the window budget would read beyond
+        its epoch window: it is dropped (re-anchored via reacquisition)
+        and leaves `active`."""
         for i, s in enumerate(self.slots):
             if s.state is SlotState.IDLE:
                 self._abs_pos[i] = base
-
-        try:
-            with tlm.span("feed.read", se=epoch_ms0) as read:
-                buf, ended, need_len = self._read_superepoch(base, k)
-        except TimeoutError:
-            if self._recover_stall(epoch_ms0):
-                return True
-            raise
-        if ended:
-            self.tlm.event(epoch_ms0, "end_of_data")
-            return False
-        self._chunk_cache = (base, buf)
         rel = np.round(self._abs_pos - base).astype(np.int64)
-        # A channel drifted past the window budget would read beyond its
-        # epoch window: re-anchor it via reacquisition.
         for i in list(active):
             if rel[i] > self._drift_margin:
-                self._drop(i, epoch_ms0, why="window_overrun")
+                self._drop(i, epoch_ms, why="window_overrun")
                 self._abs_pos[i] = base
                 rel[i] = 0
                 active.remove(i)
-        if not active:
-            self._cursor = base + k * self._espc
-            return True
+        return rel
 
-        with tlm.span("feed.upload", se=epoch_ms0,
-                      bytes=_host_bytes(buf)) as upload:
-            chunk_dev = self._to_device(buf)
-            if self._bank_dev is None:
-                self._bank_dev = self._bank_to_device()
-            state = _rows_map(self._state, lambda s, r: s._replace(
-                corr=s.corr._replace(sample_pos=torch.as_tensor(
-                    rel[r].astype(np.int32),
-                    device=s.corr.sample_pos.device))))
-        sup = tlm.open_span("superepoch", se=epoch_ms0)
-        kernel_events = [] if tlm.trace else None
-        with tlm.span("dispatch", se=epoch_ms0, k=k,
-                      n_active=len(active)) as disp:
-            packed = self._new_readback(k)
-            n_sum = 0
-            with track_kernel.timed_launches(kernel_events):
-                for j, win in enumerate(self._epoch_windows(chunk_dev, k)):
-                    state, obs = self._step_epoch(win, self._bank_dev,
-                                                  state)
-                    n_sum += self._summarize(obs, float(self.cn0_drop),
-                                             packed, j)
-            tlm.count(summaries=n_sum)
-            self._state = state
+    def _dispatch_superepoch(self, chunk: _Chunk, k: int, e0: int,
+                             acq_due: bool, delta: int, mask: np.ndarray,
+                             newsp: np.ndarray) -> _Inflight:
+        """Issue one superepoch against an uploaded chunk: retarget
+        sample_pos (every row shifted by delta, the rows in mask set to
+        newsp), k epochs of (kernel launch + device summary), the
+        readback copy and a due search. Device work and copies are
+        async."""
+        epoch_ms0 = e0 * self.epoch_ms
+        tlm = self.tlm
 
-            acq_fut = None
-            acq_base = base
-            acq_host_fallback = False
-            want = self._want_prns()
-            have_idle = any(s.state is SlotState.IDLE for s in self.slots)
-            if (acq_due or self._acq_wk is not None) and want and have_idle:
-                with tlm.span("acq.chunk_search"):
-                    lanes, acq_base, host = self._chunk_search(
-                        chunk_dev, base, need_len, want)
-                if lanes is not None:
-                    acq_fut = _Readback([lanes])
-                acq_host_fallback = host and acq_due
-            elif not (want and have_idle):
-                self._acq_wk = None
-            if acq_due:
-                self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
-
-        with tlm.span("readback", se=epoch_ms0) as rb:
-            (streams, stats), acq_fut, timing = self._materialize(
-                _Readback(packed), acq_fut, epoch_ms0,
-                kernel_events)
-            outs = [(streams[j], stats[j]) for j in range(k)]
-        tlm.task_health(epoch_ms0, "track", disp.wall_s,
-                        engine=self.engine, n_active=len(active),
-                        sync_every=k)
-        tlm.task_health(epoch_ms0, "upload", upload.wall_s,
-                        wire=self.wire or "array",
-                        read_s=round(read.wall_s, 4))
-        tlm.task_health(epoch_ms0, "readback", rb.wall_s)
-        if hasattr(self.source, "stats"):
-            tlm.task_health(epoch_ms0, "source", 0.0,
-                            **self.source.stats())
-
-        with tlm.span("supervise", se=epoch_ms0) as sv:
-            pos = base + rel.astype(np.float64)
-            pos = self._supervise_block([o[0] for o in outs],
-                                        [o[1] for o in outs], pos, e0)
-            self._abs_pos = pos
-            self._cursor = base + k * self._espc
-            self._last_progress = time.monotonic()
-        tlm.task_health(epoch_ms0, "assess", sv.wall_s)
-
-        if acq_fut is not None:
-            with tlm.span("acq.finish", se=epoch_ms0):
-                self._finish_chunk_acq(acq_fut, want, acq_base,
-                                       (e0 + k) * self.epoch_ms)
-        elif acq_host_fallback:
-            with tlm.span("acq.host_search", se=epoch_ms0) as acq:
-                self._try_acquire((e0 + k) * self.epoch_ms)
-            tlm.task_health((e0 + k) * self.epoch_ms, "acquire",
-                            acq.wall_s)
-        tlm.close_span(sup, **timing)
-        return True
-
-    # --- prefetch pipeline (overlapped superepochs) ---
-    #
-    # The device state carries across superepochs (each epoch rebases
-    # sample_pos by -espc), so dispatching superepoch n+1 needs no host
-    # round trip. Per iteration: dispatch superepoch n on the prefetched
-    # chunk, start the reader-thread prefetch of chunk n+1, then harvest
-    # and supervise superepoch n-1.
-
-    def _super_step(self, chunk, bank, state, cn0_drop: float, delta: int,
-                    mask: np.ndarray, newsp: np.ndarray, k: int):
-        """One superepoch: retarget sample_pos (base tracking + fresh slot
-        rows), then k epochs of (kernel launch + device summary). Returns
-        (state', readback tensors)."""
         def retarget(s, rows):
             dev = s.corr.sample_pos.device
             sp = s.corr.sample_pos + int(delta)
@@ -1147,67 +1066,26 @@ class ChannelManager:
                                              device=dev), sp)
             return s._replace(corr=s.corr._replace(sample_pos=sp))
 
-        state = _rows_map(state, retarget)
-        packed = self._new_readback(k)
-        n_sum = 0
-        for j, win in enumerate(self._epoch_windows(chunk, k)):
-            state, obs = self._step_epoch(win, bank, state)
-            n_sum += self._summarize(obs, cn0_drop, packed, j)
-        self.tlm.count(summaries=n_sum)
-        return state, packed
-
-    def _prefetch_chunk(self, base: int, k: int, se: int) -> _Chunk:
-        """Read + upload one superepoch chunk (on the reader thread, or
-        on the supervision thread when the prefetch missed); se: the key
-        of the superepoch it is read for."""
-        tlm = self.tlm
-        with tlm.span("feed.read", se=se) as read:
-            buf, ended, need_len = self._read_superepoch(base, k)
-        with tlm.span("feed.upload", se=se,
-                      bytes=0 if ended else _host_bytes(buf)) as upload:
-            dev = None if ended else self._to_device(buf)
-        return _Chunk(base=base, k=k, buf=buf, dev=dev, ended=ended,
-                      need_len=need_len, read=read, upload=upload)
-
-    def _dispatch_superepoch(self, chunk: _Chunk, k: int, e0: int,
-                             delta: int, mask: np.ndarray,
-                             newsp: np.ndarray) -> _Inflight:
-        """Issue one superepoch (+ a due acquisition search) against an
-        uploaded chunk; device work and readback copies are async."""
-        epoch_ms0 = e0 * self.epoch_ms
-        tlm = self.tlm
         sup = tlm.open_span("superepoch", se=epoch_ms0)
         kernel_events = [] if tlm.trace else None
         with tlm.span("dispatch", se=epoch_ms0, k=k) as disp:
             if self._bank_dev is None:
                 self._bank_dev = self._bank_to_device()
+            state = _rows_map(self._state, retarget)
+            packed = self._new_readback(k)
+            n_sum = 0
             with track_kernel.timed_launches(kernel_events):
-                self._state, packed = self._super_step(
-                    chunk.dev, self._bank_dev, self._state,
-                    float(self.cn0_drop), delta, mask, newsp, k)
+                for j, win in enumerate(self._epoch_windows(chunk.dev, k)):
+                    state, obs = self._step_epoch(win, self._bank_dev,
+                                                  state)
+                    n_sum += self._summarize(obs, float(self.cn0_drop),
+                                             packed, j)
+            tlm.count(summaries=n_sum)
+            self._state = state
             packed = _Readback(packed)
-            acq_fut = None
-            acq_base = chunk.base
-            acq_host = False
-            want = []
-            acq_due = epoch_ms0 >= self._next_reacq_ms
-            if acq_due or self._acq_wk is not None:
-                want = self._want_prns()
-                have_idle = any(s.state is SlotState.IDLE
-                                for s in self.slots)
-                if want and have_idle:
-                    with tlm.span("acq.chunk_search"):
-                        lanes, acq_base, host = self._chunk_search(
-                            chunk.dev, chunk.base, chunk.need_len, want)
-                    if lanes is not None:
-                        acq_fut = _Readback([lanes])
-                    acq_host = host and acq_due
-                else:
-                    self._acq_wk = None
-                if acq_due:
-                    self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
-            n_active = sum(s.state is not SlotState.IDLE
-                           for s in self.slots)
+            acq_fut, acq_base, acq_host, want = self._due_search(
+                chunk, acq_due, epoch_ms0)
+            n_active = len(self._active())
             tlm.count(n_active=n_active)
         return _Inflight(e0=e0, k=k, base=chunk.base, packed=packed,
                          acq_fut=acq_fut, acq_want=want,
@@ -1216,18 +1094,27 @@ class ChannelManager:
                          upload=chunk.upload, dispatch=disp, span=sup,
                          kernel_events=kernel_events, acq_base=acq_base)
 
-    def _next_base(self, active: list, la: int, k: int, det: int) -> int:
-        """Base for the next chunk: follow the fleet's positions (min
-        active, la superepochs ahead, minus a guard for backward drift)
-        so a long run never walks rel negative or past the budget."""
-        guard = 128
-        minp = min(self._abs_pos[i] for i in active)
-        desired = int(minp) + la * k * self._espc - guard
-        if self.wire is not None:
-            desired -= desired % up.align(self.wire)
-        if abs(desired - det) > self._drift_margin:
-            return det
-        return desired
+    def _due_search(self, chunk: _Chunk, acq_due: bool, epoch_ms0: int):
+        """A due search (or the weak tier's next step) on the chunk, for
+        the PRNs the idle slots may take; with nothing to search for, an
+        accumulation in progress is dropped. Returns (readback of its
+        [3, P] lanes or None, their base, host-path fallback wanted, the
+        PRNs searched for)."""
+        acq_fut, acq_base, acq_host, want = None, chunk.base, False, []
+        if acq_due or self._acq_wk is not None:
+            want = self._want_prns()
+            if want and any(s.state is SlotState.IDLE for s in self.slots):
+                with self.tlm.span("acq.chunk_search"):
+                    lanes, acq_base, host = self._chunk_search(
+                        chunk.dev, chunk.base, chunk.need_len, want)
+                if lanes is not None:
+                    acq_fut = _Readback([lanes])
+                acq_host = host and acq_due
+            else:
+                self._acq_wk = None
+            if acq_due:
+                self._next_reacq_ms = epoch_ms0 + self.reacq_period_ms
+        return acq_fut, acq_base, acq_host, want
 
     def _materialize(self, packed: _Readback, acq_fut, se: int,
                      kernel_events: Optional[list]):
@@ -1248,7 +1135,126 @@ class ChannelManager:
             acq = acq_fut.numpy()[0] if acq_fut is not None else None
         return streams, acq, timing
 
+    def _stage_health(self, p: _Inflight, readback_s: float) -> None:
+        """A superepoch's track, upload, readback and source records, the
+        walls from the spans that timed them."""
+        tlm = self.tlm
+        epoch_ms0 = p.e0 * self.epoch_ms
+        tlm.task_health(epoch_ms0, "track", p.dispatch.wall_s,
+                        engine=self.engine, n_active=p.n_active,
+                        sync_every=p.k)
+        tlm.task_health(epoch_ms0, "upload", p.upload.wall_s,
+                        wire=self.wire or "array",
+                        read_s=round(p.read.wall_s, 4))
+        tlm.task_health(epoch_ms0, "readback", readback_s)
+        if hasattr(self.source, "stats"):
+            tlm.task_health(epoch_ms0, "source", 0.0,
+                            **self.source.stats())
+
+    def _finish_search(self, p: _Inflight, acq, alloc_ms: int,
+                       head: Optional[int] = None) -> None:
+        """Place a superepoch's search results in slots starting at
+        alloc_ms (handoff to `head`, _finish_chunk_acq), or run the
+        host-path search it fell back to."""
+        epoch_ms0 = p.e0 * self.epoch_ms
+        if acq is not None:
+            with self.tlm.span("acq.finish", se=epoch_ms0):
+                self._finish_chunk_acq(acq, p.acq_want, p.acq_base,
+                                       alloc_ms, head=head)
+        elif p.acq_host:
+            self._host_search(epoch_ms0, alloc_ms)
+
+    def _run_superepoch(self, e0: int, k: int) -> bool:
+        """The serial driver: k supervision epochs in one device round
+        trip, every row rebased from the host. Returns False to stop (end
+        of data / commanded stop)."""
+        tlm = self.tlm
+        epoch_ms0 = e0 * self.epoch_ms
+        if self._commanded_stop(epoch_ms0):
+            return False
+        active = self._active()
+        acq_due = epoch_ms0 >= self._next_reacq_ms
+        if acq_due and not active:
+            active = self._cold_search(epoch_ms0)
+            acq_due = False
+        if not active:
+            self._cursor += k * self._espc
+            self._watchdog()
+            return True
+        base = self._base(active)
+        try:
+            with tlm.span("feed.read", se=epoch_ms0) as read:
+                buf, ended, need_len = self._read_superepoch(base, k)
+        except TimeoutError:
+            if self._recover_stall(epoch_ms0):
+                return True
+            raise
+        if ended:
+            tlm.event(epoch_ms0, "end_of_data")
+            return False
+        self._chunk_cache = (base, buf)
+        rel = self._rebase(base, active, epoch_ms0)
+        if not active:
+            self._cursor = base + k * self._espc
+            return True
+        with tlm.span("feed.upload", se=epoch_ms0,
+                      bytes=_host_bytes(buf)) as upload:
+            dev = self._to_device(buf)
+        chunk = _Chunk(base=base, k=k, buf=buf, dev=dev, ended=False,
+                       need_len=need_len, read=read, upload=upload)
+        p = self._dispatch_superepoch(chunk, k, e0, acq_due, delta=0,
+                                      mask=np.ones(len(self.slots), bool),
+                                      newsp=rel)
+        with tlm.span("readback", se=epoch_ms0) as rb:
+            (streams, stats), acq, timing = self._materialize(
+                p.packed, p.acq_fut, epoch_ms0, p.kernel_events)
+        self._stage_health(p, rb.wall_s)
+        with tlm.span("supervise", se=epoch_ms0) as sv:
+            self._abs_pos = self._supervise_block(
+                streams, stats, base + rel.astype(np.float64), e0)
+            self._cursor = base + k * self._espc
+            self._last_progress = time.monotonic()
+        tlm.task_health(epoch_ms0, "assess", sv.wall_s)
+        self._finish_search(p, acq, (e0 + k) * self.epoch_ms)
+        tlm.close_span(p.span, **timing)
+        return True
+
+    # --- the prefetch pipeline's driver ---
+
+    def _prefetch_chunk(self, base: int, k: int, se: int) -> _Chunk:
+        """Read + upload one superepoch chunk (on the reader thread, or
+        on the supervision thread when the prefetch missed); se: the key
+        of the superepoch it is read for."""
+        tlm = self.tlm
+        with tlm.span("feed.read", se=se) as read:
+            buf, ended, need_len = self._read_superepoch(base, k)
+        with tlm.span("feed.upload", se=se,
+                      bytes=0 if ended else _host_bytes(buf)) as upload:
+            dev = None if ended else self._to_device(buf)
+        return _Chunk(base=base, k=k, buf=buf, dev=dev, ended=ended,
+                      need_len=need_len, read=read, upload=upload)
+
+    def _next_base(self, active: list, la: int, k: int, det: int) -> int:
+        """Base for the next chunk: follow the fleet's positions (min
+        active, la superepochs ahead, minus a guard for backward drift)
+        so a long run never walks rel negative or past the budget."""
+        guard = 128
+        minp = min(self._abs_pos[i] for i in active)
+        desired = int(minp) + la * k * self._espc - guard
+        if self.wire is not None:
+            desired -= desired % up.align(self.wire)
+        if abs(desired - det) > self._drift_margin:
+            return det
+        return desired
+
     def _run_pipelined(self, e0: int, n_epochs: int) -> None:
+        """The prefetch pipeline's driver. The device state carries across
+        superepochs (each epoch rebases sample_pos by -espc), so
+        dispatching superepoch n+1 needs no host round trip: per
+        iteration it dispatches superepoch n on the prefetched chunk,
+        starts the reader thread's prefetch of chunk n+1, then harvests
+        and supervises superepoch n-1. Only entry rebases from the host;
+        slots placed by a harvest start one superepoch later."""
         espc = self._espc
         tlm = self.tlm
         ex = ThreadPoolExecutor(max_workers=1,     # reader / uploader
@@ -1265,13 +1271,9 @@ class ChannelManager:
             while e < n_epochs:
                 k = min(self.sync_every, n_epochs - e)
                 epoch_ms0 = e * self.epoch_ms
-                if self.commands is not None:
-                    self._apply_commands(epoch_ms0)
-                if self._stop:
-                    self.tlm.event(epoch_ms0, "commanded_stop")
+                if self._commanded_stop(epoch_ms0):
                     break
-                active = [i for i, s in enumerate(self.slots)
-                          if s.state is not SlotState.IDLE]
+                active = self._active()
                 if not active:
                     if pend is not None:
                         # Drain the in-flight superepoch first: its
@@ -1284,14 +1286,7 @@ class ChannelManager:
                         continue
                     nxt = None
                     if epoch_ms0 >= self._next_reacq_ms:
-                        with tlm.span("acq.host_search",
-                                      se=epoch_ms0) as acq:
-                            self._try_acquire(epoch_ms0)
-                        tlm.task_health(epoch_ms0, "acquire", acq.wall_s)
-                        self._next_reacq_ms = (epoch_ms0
-                                               + self.reacq_period_ms)
-                        active = [i for i, s in enumerate(self.slots)
-                                  if s.state is not SlotState.IDLE]
+                        active = self._cold_search(epoch_ms0)
                     if not active:
                         self._cursor += k * espc
                         self._watchdog()
@@ -1301,23 +1296,11 @@ class ChannelManager:
                     entry = True
                 entry_rel = None
                 if entry:
-                    base = int(min(self._abs_pos[i] for i in active))
-                    if self.wire is not None:
-                        base -= base % up.align(self.wire)
-                    rel = np.round(self._abs_pos - base).astype(np.int64)
-                    for i in list(active):
-                        if rel[i] > self._drift_margin:
-                            self._drop(i, epoch_ms0, why="window_overrun")
-                            self._abs_pos[i] = base
-                            rel[i] = 0
-                            active.remove(i)
+                    base = self._base(active)
+                    rel = self._rebase(base, active, epoch_ms0)
                     if not active:
                         self._cursor = base + k * espc
                         continue
-                    for i, s in enumerate(self.slots):
-                        if s.state is SlotState.IDLE:
-                            self._abs_pos[i] = base
-                            rel[i] = 0
                     entry_rel = rel
                     self._pending_allocs = []
                     self._cursor = base
@@ -1362,8 +1345,9 @@ class ChannelManager:
                         newsp[i] = sp_i
                         self._abs_pos[i] = base + sp_i
                     self._pending_allocs = []
-                cur = self._dispatch_superepoch(chunk, k, e, delta, mask,
-                                                newsp)
+                cur = self._dispatch_superepoch(
+                    chunk, k, e, epoch_ms0 >= self._next_reacq_ms, delta,
+                    mask, newsp)
                 cur.fetch = fx.submit(self._materialize, cur.packed,
                                       cur.acq_fut, epoch_ms0,
                                       cur.kernel_events)
@@ -1401,22 +1385,9 @@ class ChannelManager:
         epoch_ms0 = p.e0 * self.epoch_ms
         tlm = self.tlm
         with tlm.span("harvest.wait", se=epoch_ms0) as wait:
-            if p.fetch is not None:
-                (streams_k, stats_k), acq, timing = p.fetch.result()
-            else:
-                (streams_k, stats_k), acq, timing = self._materialize(
-                    p.packed, p.acq_fut, epoch_ms0, p.kernel_events)
+            (streams_k, stats_k), acq, timing = p.fetch.result()
         with tlm.span("supervise", se=epoch_ms0) as sv:
-            tlm.task_health(epoch_ms0, "track", p.dispatch.wall_s,
-                            engine=self.engine, n_active=p.n_active,
-                            sync_every=p.k)
-            tlm.task_health(epoch_ms0, "upload", p.upload.wall_s,
-                            wire=self.wire or "array",
-                            read_s=round(p.read.wall_s, 4))
-            tlm.task_health(epoch_ms0, "readback", wait.wall_s)
-            if hasattr(self.source, "stats"):
-                tlm.task_health(epoch_ms0, "source", 0.0,
-                                **self.source.stats())
+            self._stage_health(p, wait.wall_s)
             self._chunk_cache = (p.base, p.buf)
             # Slots allocated since this superepoch was dispatched start
             # at the next one: keep their fresh positions out of its
@@ -1437,14 +1408,7 @@ class ChannelManager:
                 self._abs_pos[i] = v
             self._last_progress = time.monotonic()
         tlm.task_health(epoch_ms0, "assess", sv.wall_s)
-        if acq is not None:
-            with tlm.span("acq.finish", se=epoch_ms0):
-                self._finish_chunk_acq(acq, p.acq_want, p.acq_base,
-                                       alloc_ms, head=next_base)
-        elif p.acq_host:
-            with tlm.span("acq.host_search", se=epoch_ms0) as host:
-                self._try_acquire(alloc_ms)
-            tlm.task_health(alloc_ms, "acquire", host.wall_s)
+        self._finish_search(p, acq, alloc_ms, head=next_base)
         allocs = list(self._alloc_log)
         self._alloc_log = None
         self._pending_allocs.extend(allocs)
@@ -1503,9 +1467,7 @@ class ChannelManager:
 
         abs_samp = (ends - rem.astype(np.float64)
                     * self.eng.rem_to_samples)
-        active = [i for i, s in enumerate(self.slots)
-                  if s.state is not SlotState.IDLE]
-        for i in active:
+        for i in self._active():
             s = self.slots[i]
             if s.started_ms > epoch_ms:
                 # Allocated after this superepoch was dispatched: its row

@@ -70,9 +70,10 @@ def _states(mgr):
     return [(s.prn, s.state.value) for s in mgr.slots]
 
 
-@pytest.mark.parametrize("prefetch", [False, True])
-def test_gather_manager_matches_reference(samples, prefetch):
-    kw = dict(prefetch=prefetch, readback="compact" if prefetch else "f32")
+@pytest.mark.parametrize("prefetch,readback", [
+    (False, "f32"), (False, "compact"), (True, "f32"), (True, "compact")])
+def test_gather_manager_matches_reference(samples, prefetch, readback):
+    kw = dict(prefetch=prefetch, readback=readback)
     jm, jr = _run(JManager, JPacked(samples, fmt="sm2"), "gather", **kw)
     tm, tr = _run(TManager, TPacked(samples, fmt="sm2"), "gather", **kw)
     assert tm.wire == jm.wire == "sm2"
@@ -88,7 +89,8 @@ def test_gather_manager_matches_reference(samples, prefetch):
         assert h["start_ms"] == g["start_ms"]
         for lane in ("i_p", "q_p", "carr_doppler", "abs_sample"):
             scale = float(np.max(np.abs(g[lane])))
-            rtol = 1e-3 if prefetch and lane in ("i_p", "q_p") else 1e-4
+            rtol = (1e-3 if readback == "compact" and lane in ("i_p", "q_p")
+                    else 1e-4)
             np.testing.assert_allclose(h[lane], g[lane], rtol=rtol,
                                        atol=1e-4 * scale, err_msg=lane)
 
