@@ -84,6 +84,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      SUMMARY_TOL, two fills bit-identical; us per launch and the plain
      version's us per epoch (CUDA events, queued behind a spin) beside
      its bound, and its build record;
+ 42. (printed after 40) the wire decode (ops/unpack.py unpack: the int32
+     index cast and the gather from the format's 256-row table) of one
+     superepoch's sm2 bytes in each benchmark cell (4,096,000 for GPS's
+     4 s, 12,000,000 for L3OC's 1 s): ms per decode (CUDA events, queued
+     behind a spin) beside its bound (a byte read and two f32 pairs
+     written at 3.35 TB/s) and beside the reference arithmetic it
+     replaced, on the same bytes; the card's decode bit-identical to the
+     CPU's and to that arithmetic; iq8, iq4 and iq1 on the L3OC bytes;
   5. the GPS main path (warm-up run, then a measured run) with its
      end-to-end checks and K1's launch count;
   6. K2's build record: its cluster launch at C=12 (N CTAs per channel,
@@ -285,7 +293,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      not, no jax or gnsstpu module loaded;
  18. (printed after 39) K1's launches on each of its paths (the
      examples' in their own processes, read back; the CLI's subprocesses
-     uncounted; bench's in this one), K2's and K3's by path;
+     uncounted; bench's in this one), K2's and K3's by path, the summary
+     kernel's and the wire table's card decodes by path;
 Phases 22-25 track the very signal of the reference test they name: the
 port's simulator with the reference's noise (IFSimulator(noise="jax"),
 jax.random's draws made without JAX) behind the reference test's
@@ -488,6 +497,13 @@ def bound(n_bytes: float, flops: float) -> tuple:
     take for this work on the published peaks."""
     t_b, t_f = n_bytes / HBM_BPS, flops / F32_FLOPS
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def reset_counts() -> None:
+    """Zero K1-K3's and the summary kernel's launch counts and the wire
+    table's card decodes, at the start of a path."""
+    tk.reset_launches()
+    up.reset_decodes()
 
 
 def rows_used(rem0, rem_out, offs, ph, n_rows) -> np.ndarray:
@@ -810,7 +826,7 @@ def gps_main_path(device, src=None, mesh=None) -> tuple:
     tlm = Telemetry(sink=None)
     tlm.subscribe(coll)
     warm_ms, meas_ms = gps_windows(n_ms)
-    tk.reset_launches()
+    reset_counts()
     mgr = gps_manager(src, cfg, pool, device=device, telemetry=tlm,
                       navigator=navr, engine="fused", mesh=mesh)
     mgr.run(warm_ms)
@@ -834,6 +850,7 @@ def gps_main_path(device, src=None, mesh=None) -> tuple:
         "pvt_solutions": len(coll.pvt),
         "k1_launches": launches,
         "summary_launches": sk.LAUNCHES["epoch_summary"],
+        "decodes": up.DECODES["unpack"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -991,7 +1008,7 @@ def galileo_main_path(device, src=None, mesh=None) -> tuple:
     tlm = Telemetry(sink=None)
     tlm.subscribe(coll)
     warm_ms = 2 * sync_every * epoch_ms
-    tk.reset_launches()
+    reset_counts()
     mgr = ChannelManager(
         src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
         reacq_period_ms=2000, sync_every=sync_every, navigator=navr,
@@ -1024,6 +1041,7 @@ def galileo_main_path(device, src=None, mesh=None) -> tuple:
         "k2_launches": launches["track_chunk_boc_fused"],
         "k1_launches": launches["track_chunk_fused"],
         "summary_launches": sk.LAUNCHES["epoch_summary"],
+        "decodes": up.DECODES["unpack"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -1193,7 +1211,7 @@ def l3_main_path(device, k3_ms: float, src=None, mesh=None) -> tuple:
     tlm = Telemetry(sink=None)
     tlm.subscribe(coll)
     warm_ms = 2 * sync_every * epoch_ms
-    tk.reset_launches()
+    reset_counts()
     mgr = ChannelManager(
         src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
         reacq_period_ms=1000, sync_every=sync_every, navigator=navr,
@@ -1252,6 +1270,7 @@ def l3_main_path(device, k3_ms: float, src=None, mesh=None) -> tuple:
         "k1_launches": launches["track_chunk_fused"],
         "k2_launches": launches["track_chunk_boc_fused"],
         "summary_launches": sk.LAUNCHES["epoch_summary"],
+        "decodes": up.DECODES["unpack"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -1286,7 +1305,7 @@ def k1_family_path(device, *, sig, trk, acq, sats, sky, absent, recv,
     tlm = Telemetry(sink=None)
     tlm.subscribe(coll)
     warm_ms = 2 * sync_every * epoch_ms
-    tk.reset_launches()
+    reset_counts()
     mgr = ChannelManager(
         src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
         reacq_period_ms=reacq_period_ms, confirm_epochs=confirm_epochs,
@@ -1340,6 +1359,7 @@ def k1_family_path(device, *, sig, trk, acq, sats, sky, absent, recv,
         "k2_launches": launches["track_chunk_boc_fused"],
         "k3_launches": launches["track_chunk_dual_fused"],
         "summary_launches": sk.LAUNCHES["epoch_summary"],
+        "decodes": up.DECODES["unpack"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }, mgr
@@ -1726,7 +1746,7 @@ def gps_tcp_live_path(device, wire: np.ndarray, k1_ms: float,
             if time.monotonic() > deadline:
                 raise AssertionError("station client never connected")
             time.sleep(0.01)
-        tk.reset_launches()
+        reset_counts()
         mgr = gps_manager(src, cfg, list(pool), device=device,
                           telemetry=tlm, navigator=navr, engine="fused",
                           commands=srv.commands)
@@ -1795,6 +1815,7 @@ def gps_tcp_live_path(device, wire: np.ndarray, k1_ms: float,
         "k2_launches": launches["track_chunk_boc_fused"],
         "k3_launches": launches["track_chunk_dual_fused"],
         "summary_launches": sk.LAUNCHES["epoch_summary"],
+        "decodes": up.DECODES["unpack"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -2010,7 +2031,7 @@ def gps_resampled_path(device, k1_ms: float, seconds: float = 8.0) -> dict:
         try:
             src = StreamSource(fifo, blk, history_blocks=blocks,
                                timeout_s=60.0)
-            tk.reset_launches()
+            reset_counts()
             mgr = ChannelManager(
                 src, cfg, device=device, telemetry=tlm, epoch_ms=epoch_ms,
                 reacq_period_ms=1000, sync_every=sync_every,
@@ -2072,6 +2093,7 @@ def gps_resampled_path(device, k1_ms: float, seconds: float = 8.0) -> dict:
         "k2_launches": launches["track_chunk_boc_fused"],
         "k3_launches": launches["track_chunk_dual_fused"],
         "summary_launches": sk.LAUNCHES["epoch_summary"],
+        "decodes": up.DECODES["unpack"],
         "stage_wall_s": {k: round(v, 4) for k, v in
                          sorted(coll.stages.items())},
     }
@@ -2345,7 +2367,7 @@ def offline_run(device, src: ReplaySource, cfg, n_ms: int, kernel: str,
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     src.replay()
-    tk.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     out = run_receiver(src, cfg, n_ms=n_ms, device=device)
     torch.cuda.synchronize()
@@ -2605,7 +2627,7 @@ def l3_dual_path(device, k3_ms: float) -> dict:
     setup = time.perf_counter() - t0
     acq = AcqConfig(doppler_band=8e3, coherent_ms=1, threshold=2.5,
                     doppler_step=250.0, prn_list=tuple(prns + absent))
-    tk.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     x = src.read(0, search.acq_samples_needed(LSIG, acq)).cpu().numpy()
     res = search.acquire(x, LSIG, acq, device=device)
@@ -2891,6 +2913,60 @@ def summary_path(device, launches: int = 400) -> dict:
             "locked_compared": int(away.sum()),
             "locked_plain_true": int(want[..., 3][away].sum()),
             **sk.summary_info()}
+
+
+#: Phase 42's decodes: (tag, format, bytes). The sm2 bytes of one
+#: superepoch in each benchmark cell (GPS L1 C/A: 4 s at 2.048 Msps;
+#: GLONASS L3OC: 1 s at 24 Msps), then the other formats on the L3OC
+#: chunk's bytes.
+DECODE_CASES = (("gps_l1ca_4s", "sm2", 4_096_000),
+                ("glonass_l3oc_1s", "sm2", 12_000_000),
+                ("iq8_12MB", "iq8", 12_000_000),
+                ("iq4_12MB", "iq4", 12_000_000),
+                ("iq1_12MB", "iq1", 12_000_000))
+
+
+def wire_decode_path(device, reps: int = 20) -> dict:
+    """The wire decode (ops/unpack.py unpack: the int32 index cast and
+    the gather from the format's 256-row table) for each DECODE_CASES
+    entry: the card's decode bit-identical to the CPU's; ms per decode
+    (CUDA events, reps decodes queued behind a spin) beside its bound
+    (each byte read once, its f32 samples written once, at 3.35 TB/s);
+    for sm2 also bit-identical to, and timed beside, the reference
+    arithmetic the table replaced (_decode_arith) on the same bytes."""
+    out = {}
+    for tag, fmt, n in DECODE_CASES:
+        host = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+        packed = torch.from_numpy(host).to(device)
+        got = up.unpack(packed, fmt).view(torch.int32)
+        want = torch.from_numpy(up.unpack_np(host, fmt)).view(torch.int32)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"wire decode {tag}: card differs from "
+                                 "the CPU")
+        runs = {"ms": lambda: up.unpack(packed, fmt)}
+        if fmt == "sm2":
+            arith = up._decode_arith(packed.to(torch.int32), fmt)
+            if not torch.equal(got, arith.view(torch.int32)):
+                raise AssertionError(f"wire decode {tag}: table differs "
+                                     "from the arithmetic")
+            runs["arith_ms"] = lambda: up._decode_arith(
+                packed.to(torch.int32), fmt)
+            del arith
+        del got
+        b_ms, b_by = bound(n * (1 + 8 * up.samples_per_byte(fmt)), 0.0)
+        rec = {"format": fmt, "bytes": n, "bound_ms": b_ms,
+               "bound_by": b_by}
+        for key, fn in runs.items():
+
+            def run():
+                for _ in range(reps):
+                    fn()
+
+            run()
+            rec[key] = 1e3 * _timed_s(run, device) / reps
+        rec["ms_over_bound"] = rec["ms"] / b_ms
+        out[tag] = rec
+    return out
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -3353,7 +3429,7 @@ def cosim_run(device, sky, acq: AcqConfig) -> dict:
         start=cosim.code_start_sample(c, d)) for p, d, c in sky}
     int_s = time.perf_counter() - t0
     cfg = ReceiverConfig(signal=SIG, acq=acq, n_channels=len(sky))
-    tk.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     mgr = ChannelManager(SimSource(sim, COSIM_MS + 20), cfg,
                          prn_pool=[p for p, _, _ in sky], epoch_ms=100,
@@ -3398,6 +3474,7 @@ def cosim_run(device, sky, acq: AcqConfig) -> dict:
                     "manager_wall_s": round(mgr_s, 3),
                     "k1_launches": launches["track_chunk_fused"],
                     "summary_launches": sk.LAUNCHES["epoch_summary"],
+                    "decodes": up.DECODES["unpack"],
                     "failed_prns": {k: v for k, v in failed.items() if v},
                     "per_prn": rows}, checks)
 
@@ -3418,7 +3495,7 @@ def bench_path() -> tuple:
     from gnsstpu_torch.__main__ import main as cli_main
 
     out = io.StringIO()
-    tk.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = cli_main(["bench"])
@@ -3456,6 +3533,7 @@ def bench_path() -> tuple:
     checks["no jax or gnsstpu module loaded"] = not refused
     return line, {"wall_s": wall, "k1_launches": launches[
         "track_chunk_fused"], "summary_launches": sk.LAUNCHES["epoch_summary"],
+        "decodes": up.DECODES["unpack"],
         "refused_modules": refused, "checks": checks}
 
 
@@ -3623,14 +3701,17 @@ example = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(example)
 from gnsstpu_torch.ops import summary_kernel as sk
 from gnsstpu_torch.ops import track_kernel as tk
+from gnsstpu_torch.ops import unpack as up
 
 tk.reset_launches()
+up.reset_decodes()
 t0 = time.perf_counter()
 result = example.main(device=device)
 wall = time.perf_counter() - t0
 print("EXAMPLE-RESULT " + json.dumps({
     "result": result, "main_wall_s": wall,
     "launches": {**tk.LAUNCHES, **sk.LAUNCHES},
+    "decodes": up.DECODES["unpack"],
     "refused_modules": sorted(m for m in sys.modules
                               if m.split(".")[0] in REFUSED)}), flush=True)
 """
@@ -3796,6 +3877,16 @@ def main() -> int:
           f"bit-identical; "
           f"{sb.path.name} built in {sb.build_s:.2f} s (beside K1-K3); "
           f"{ptxas(sb)}; {json.dumps(summ)}", flush=True)
+
+    # 42. The wire decode at both cells' chunk sizes.
+    dec = wire_decode_path(dev)
+    print("[42 wire decode] table decode (int32 index cast + gather), "
+          "card bit-identical to the CPU (sm2: and to the arithmetic) | "
+          + " | ".join(f"{k}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                       f"ms ({r['ms_over_bound']:.2f}x)"
+                       + (f", arithmetic {r['arith_ms']:.4f} ms"
+                          if "arith_ms" in r else "")
+                       for k, r in dec.items()), flush=True)
 
     # 5. GPS main path.
     res, gps_src, gps_snap = gps_main_path(dev)
@@ -4222,6 +4313,24 @@ def main() -> int:
     summary_paths.update({ex: r["launches"]["epoch_summary"]
                           for ex, r in exres.items()})
     print(f"[18 summary launches by path] {json.dumps(summary_paths)}",
+          flush=True)
+    # The wire table's card decodes on each live path (one a superepoch
+    # chunk fed in a wire format; none where the samples are f32).
+    decode_paths = {
+        "gps_l1_live_12ch": res["decodes"],
+        "gps_l1_live_12ch_mesh2": mres["decodes"],
+        "galileo_e1b_live_12ch": gres["decodes"],
+        "glonass_l3oc_live_12ch": lres["decodes"],
+        "beidou_b1i_live_12ch": bres["decodes"],
+        "glonass_l1of_live_12ch": ores["decodes"],
+        "gps_l1_tcp_live_12ch": tres["decodes"],
+        "gps_l1_16msps_resampled_12ch": rres["decodes"],
+        "gps_l1_gp2021_cosim_12ch": coarse["decodes"] + sum(
+            r["decodes"] for r in cres36.values()),
+        "bench": bench_res["decodes"],
+        **{tag: r["decodes"] for tag, r in fres.items()}}
+    decode_paths.update({ex: r["decodes"] for ex, r in exres.items()})
+    print(f"[18 table decodes by path] {json.dumps(decode_paths)}",
           flush=True)
 
     print(json.dumps({"kernels": [

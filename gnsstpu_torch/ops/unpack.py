@@ -6,10 +6,15 @@ link and are unpacked on the device. Formats (bits per complex pair):
 
 The format arithmetic and the host packer are copied from the reference
 module (the native packer of gnsstpu_torch.native, and its NumPy
-fallback); `unpack_np` here is the jax-free host decode.
+fallback). The decode does not run that arithmetic per sample: every
+format packs whole samples into a byte, so `unpack` gathers each byte's
+row of a 256-row table the arithmetic built once (table); `unpack_np`,
+the jax-free host decode, is the same gather on the CPU.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -100,9 +105,10 @@ def pack_np(iq: np.ndarray, fmt: str, scale: float = 1.0) -> np.ndarray:
     raise ValueError(f"unknown wire format {fmt!r}")
 
 
-def unpack(packed: torch.Tensor, fmt: str) -> torch.Tensor:
-    """uint8 wire bytes -> f32 [N, 2] on packed's device."""
-    p = packed.to(torch.int32)
+def _decode_arith(p: torch.Tensor, fmt: str) -> torch.Tensor:
+    """The reference's decode arithmetic: int32 byte values -> f32
+    [N, 2]. Run once per format over every byte value to build its
+    table (table); no sample stream goes through it."""
     if fmt == "iq8":
         v = torch.where(p >= 128, p - 256, p).to(torch.float32)
         return v.reshape(-1, 2)
@@ -124,6 +130,68 @@ def unpack(packed: torch.Tensor, fmt: str) -> torch.Tensor:
         q = 1 - 2 * ((two >> 1) & 1)
         return torch.stack([i, q], dim=1).to(torch.float32)
     raise ValueError(f"unknown wire format {fmt!r}")
+
+
+#: Decode tables by (format, device), each built at its first use.
+_TABLES: dict = {}
+_TABLES_LOCK = threading.Lock()
+#: unpack calls on a device other than the CPU since the last reset
+#: (reset_decodes): each is one table decode of a chunk on the card.
+DECODES = {"unpack": 0}
+#: The element a table row is gathered as, by the row's bytes (iq8 4,
+#: iq4 8, sm2 16; iq1's 32-byte row is two 16-byte elements).
+_ELEMENTS = {4: torch.int32, 8: torch.int64, 16: torch.complex128}
+
+
+def reset_decodes() -> None:
+    DECODES["unpack"] = 0
+
+
+def table(fmt: str, device) -> torch.Tensor:
+    """f32 [256, 2 * samples_per_byte(fmt)] on device: row b holds byte
+    b's decoded (I, Q) values in sample order (sm2 [256, 4], iq4
+    [256, 2], iq1 [256, 8], iq8 [256, 1], half a pair). Every format
+    packs whole samples into a byte, so the table is exact: it is
+    _decode_arith run on the CPU over every byte value, uploaded once
+    per (format, device) and cached."""
+    key = (fmt, torch.device(device))
+    lut = _TABLES.get(key)
+    if lut is None:
+        if fmt not in WIRE_FORMATS:
+            raise ValueError(f"unknown wire format {fmt!r}")
+        with _TABLES_LOCK:
+            lut = _TABLES.get(key)
+            if lut is None:
+                every = torch.arange(256, dtype=torch.int32)
+                lut = _decode_arith(every, fmt).reshape(256, -1).to(key[1])
+                _TABLES[key] = lut
+    return lut
+
+
+def unpack(packed: torch.Tensor, fmt: str) -> torch.Tensor:
+    """uint8 wire bytes -> f32 [N, 2] on packed's device: each byte's
+    row of the format's table, gathered bit for bit.
+
+    The gather is 1-D, over the table's rows viewed as single elements
+    (sm2's 16-byte row one complex128): PyTorch's CUDA index_select,
+    gather and indexing launch a 2-D row gather as one block a row,
+    ~120x the byte bound at 12 MB of sm2, while a 1-D gather is
+    elementwise. Two launches on the card for sm2, iq4 and iq8 (the
+    int32 index cast and the gather; a uint8 index would be read as a
+    mask, an int64 one doubles the index traffic), four for iq1, whose
+    row is two elements."""
+    lut = table(fmt, packed.device)
+    if packed.device.type != "cpu":
+        DECODES["unpack"] += 1
+    row = 4 * lut.shape[1]
+    elems = lut.view(_ELEMENTS[min(row, 16)]).reshape(-1)
+    idx = packed.reshape(-1).to(torch.int32)
+    if row > 16:
+        k = row // 16
+        idx = (idx * k).unsqueeze(1) + torch.arange(
+            k, dtype=torch.int32, device=idx.device)
+        idx = idx.reshape(-1)
+    return elems.index_select(0, idx).view(torch.float32).reshape(-1, 2)
 
 
 def unpack_np(packed: np.ndarray, fmt: str) -> np.ndarray:

@@ -60,7 +60,9 @@ feed.read, feed.upload; the fetch thread (gnss-fetch):
 fetch.device_wait, fetch.decode. With tracing on, K1's and K3's
 launches carry CUDA timing events, summed into the superepoch span's
 k1_device_ns / k3_device_ns (with k1_launches / k3_launches), the
-dispatch span counts the summary kernel's launches (summaries), and each
+dispatch span counts the summary kernel's launches (summaries), the
+feed.upload span the samples the wire table decoded (decoded; 0 for f32
+samples) beside the bytes read into host memory (bytes), and each
 search span (acq.host_search, acq.chunk_search) the code rows it
 correlated (codes) and whether pilot and data powers were summed
 (combined).
@@ -568,12 +570,16 @@ class ChannelManager:
         return self.source.read(start, count)
 
     def _to_device(self, buf) -> torch.Tensor:
-        """Upload + decode to f32 [N, 2] on the device. Device-resident
-        sources hand back device tensors: only the unpack runs."""
+        """Upload + decode to f32 [N, 2] on the device (inside the caller's
+        feed.upload span, whose `decoded` counts the samples the wire
+        table decoded). Device-resident sources hand back device tensors:
+        only the unpack runs."""
         if self.wire is not None:
             if not isinstance(buf, torch.Tensor):
                 buf = torch.from_numpy(np.ascontiguousarray(buf, np.uint8))
-            return up.unpack(buf.to(self.device), self.wire)
+            dev = up.unpack(buf.to(self.device), self.wire)
+            self.tlm.count(decoded=dev.shape[0])
+            return dev
         if isinstance(buf, torch.Tensor):
             return buf.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(buf, np.float32),
@@ -1197,8 +1203,8 @@ class ChannelManager:
         if not active:
             self._cursor = base + k * self._espc
             return True
-        with tlm.span("feed.upload", se=epoch_ms0,
-                      bytes=_host_bytes(buf)) as upload:
+        with tlm.span("feed.upload", se=epoch_ms0, bytes=_host_bytes(buf),
+                      decoded=0) as upload:
             dev = self._to_device(buf)
         chunk = _Chunk(base=base, k=k, buf=buf, dev=dev, ended=False,
                        need_len=need_len, read=read, upload=upload)
@@ -1229,7 +1235,8 @@ class ChannelManager:
         with tlm.span("feed.read", se=se) as read:
             buf, ended, need_len = self._read_superepoch(base, k)
         with tlm.span("feed.upload", se=se,
-                      bytes=0 if ended else _host_bytes(buf)) as upload:
+                      bytes=0 if ended else _host_bytes(buf),
+                      decoded=0) as upload:
             dev = None if ended else self._to_device(buf)
         return _Chunk(base=base, k=k, buf=buf, dev=dev, ended=ended,
                       need_len=need_len, read=read, upload=upload)

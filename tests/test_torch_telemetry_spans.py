@@ -9,7 +9,8 @@ the spans' walls, and under torch.profiler each nesting span is one
 gnss.<name> range of its duration. `track --profile DIR` writes the
 spans beside the trace. The search spans count the code rows searched
 and whether pilot and data powers were summed (GPS and a small L3OC
-run); K1's and K3's CUDA events become the superepoch's counters.
+run); K1's and K3's CUDA events become the superepoch's counters; each
+upload counts the samples the wire table decoded.
 """
 
 import json
@@ -23,10 +24,10 @@ import torch
 from gnsstpu_torch.__main__ import _run_profiled, main
 from gnsstpu_torch.config import (AcqConfig, NavConfig, ReceiverConfig,
                                   SignalConfig, TrackConfig)
-from gnsstpu_torch.ops import track_kernel
+from gnsstpu_torch.ops import track_kernel, unpack
 from gnsstpu_torch.runtime.manager import ChannelManager
 from gnsstpu_torch.runtime.navigator import OnlineNavigator
-from gnsstpu_torch.runtime.sources import PackedArraySource
+from gnsstpu_torch.runtime.sources import ArraySource, PackedArraySource
 from gnsstpu_torch.runtime.telemetry import Telemetry
 from gnsstpu_torch.signals import glonass_l3
 from gnsstpu_torch.sim import IFSimulator, SatParams
@@ -55,13 +56,16 @@ def _cfg():
         track=TrackConfig(dll_bw=1.0), nav=NavConfig(), n_channels=3)
 
 
-def _run(samples, trace: bool, prefetch: bool):
-    """(telemetry records, Telemetry) of one 800 ms run."""
+def _run(samples, trace: bool, prefetch: bool, wire: str = "sm2"):
+    """(telemetry records, Telemetry) of one 800 ms run, fed packed in
+    the wire format (None: f32 samples)."""
     recs = []
     tlm = Telemetry(trace=trace)
     tlm.subscribe(recs.append)
+    src = ArraySource(samples) if wire is None \
+        else PackedArraySource(samples, fmt=wire)
     mgr = ChannelManager(
-        PackedArraySource(samples, fmt="sm2"), _cfg(), device="cpu",
+        src, _cfg(), device="cpu",
         telemetry=tlm, epoch_ms=100, reacq_period_ms=400,
         cn0_drop_dbhz=35.0, prn_pool=[5, 12], sync_every=4,
         engine="fused", prefetch=prefetch,
@@ -254,6 +258,19 @@ def test_manager_spans(samples, prefetch, monkeypatch):
     up = [x["counters"]["bytes"] for x in spans
           if x["name"] == "feed.upload"]
     assert up and all(b > 0 for b in up)
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+@pytest.mark.parametrize("wire", ["sm2", None])
+def test_feed_upload_counts_decoded(samples, wire, prefetch):
+    """Every feed.upload span counts the samples the wire table decoded
+    for its chunk: the bytes read times the samples a byte for sm2 bytes
+    from host memory, 0 for f32 samples."""
+    _, tlm = _run(samples, True, prefetch, wire)
+    up = [x["counters"] for x in tlm.spans if x["name"] == "feed.upload"]
+    assert up and all(c["bytes"] > 0 for c in up)
+    spb = 0 if wire is None else unpack.samples_per_byte(wire)
+    assert [c["decoded"] for c in up] == [c["bytes"] * spb for c in up]
 
 
 def test_spans_are_profiler_ranges(samples, tmp_path):
