@@ -30,8 +30,7 @@ import torch  # noqa: E402
 from portbench import plan  # noqa: E402
 from portbench.gen import sky as skymod  # noqa: E402
 from portbench.reference import compare  # noqa: E402
-from portbench.reference.truth import (broadcast_ephemeris,  # noqa: E402
-                                       streams_of)
+from portbench.reference.truth import streams_of  # noqa: E402
 
 DTYPES = {"float64": torch.float64, "float32": torch.float32,
           "bfloat16": torch.bfloat16}
@@ -57,10 +56,11 @@ def ideal_pass(sky, cfg: dict, n_ms: int, device_dtype: str,
     streams = streams_of(sky)
     data_off = cfg["signal"].get("data_prn_offset")
     spc = sky.signal.samples_per_code
+    n_per = int(n_ms // cfg["signal"]["code_period_ms"]) - 2
     history, events = {}, []
     for prn in sky.prns:
         st = streams[prn]
-        ends = st.code_starts(2.0 * spc, n_ms - 2)
+        ends = st.code_starts(2.0 * spc, n_per)
         h = {"abs_sample": [_round(ends, host_dtype)],
              "carr_doppler": [_round(st.doppler_hz(ends), device_dtype)],
              "i_p": [_round(1e3 * st.symbols(ends), device_dtype)],
@@ -73,8 +73,9 @@ def ideal_pass(sky, cfg: dict, n_ms: int, device_dtype: str,
                        "prn": prn})
     decoded = {}
     for prn, eph in sky.ephs.items():
+        want = sky.signal.module.broadcast(eph)
         fields = {k: (float(_round(v, host_dtype)) if isinstance(v, float)
-                      else v) for k, v in broadcast_ephemeris(eph).items()}
+                      else v) for k, v in want.items()}
         decoded[prn] = (0, 0.0, types.SimpleNamespace(**fields))
     solutions = []
     if sky.recv_ecef is not None:

@@ -1,6 +1,7 @@
-"""GPS broadcast orbits and the geodesy the sky needs: a frozen copy
-(NumPy, float64) of the port's nav/types.py Ephemeris, nav/orbits.py
-satpos and nav/geodesy.py e_r_corr / togeod / topocent / cart2geo.
+"""Broadcast Keplerian orbits and the geodesy the skies need: a frozen
+copy (NumPy, float64) of the port's nav/types.py Ephemeris, nav/orbits.py
+satpos and nav/geodesy.py e_r_corr / togeod / topocent / cart2geo, with
+the delay fit every geometry-true sky takes.
 """
 
 from __future__ import annotations
@@ -58,9 +59,11 @@ def check_t(t):
     return np.where(t < -HALF_WEEK, t + 2 * HALF_WEEK, t)
 
 
-def satpos(transmit_time, ephs):
-    """(ECEF positions [S, 3] m, clock corrections [S] s) at GPS transmit
-    times, with the relativistic term and -T_GD in the clock."""
+def satpos(transmit_time, ephs, gm: float = GM,
+           omega_e: float = OMEGA_E_ORBIT):
+    """(ECEF positions [S, 3] m, clock corrections [S] s) at transmit
+    times, with the relativistic term and -T_GD in the clock; gm and
+    omega_e are the constellation's (default GPS's WGS-84)."""
     S = len(ephs)
     tt = np.broadcast_to(np.asarray(transmit_time, np.float64), (S,))
 
@@ -73,7 +76,7 @@ def satpos(transmit_time, ephs):
     sqrtA, ecc = f("sqrtA"), f("e")
     a = sqrtA * sqrtA
     tk = check_t(time - f("t_oe"))
-    M = f("M_0") + (np.sqrt(GM / a ** 3) + f("deltan")) * tk
+    M = f("M_0") + (np.sqrt(gm / a ** 3) + f("deltan")) * tk
     E = M.copy()
     for _ in range(20):
         E = M + ecc * np.sin(E)
@@ -84,8 +87,8 @@ def satpos(transmit_time, ephs):
     u = phi + f("C_uc") * c2 + f("C_us") * s2
     r = a * (1.0 - ecc * np.cos(E)) + f("C_rc") * c2 + f("C_rs") * s2
     inc = f("i_0") + f("iDot") * tk + f("C_ic") * c2 + f("C_is") * s2
-    Om = (f("omega_0") + (f("omegaDot") - OMEGA_E_ORBIT) * tk
-          - OMEGA_E_ORBIT * f("t_oe"))
+    Om = (f("omega_0") + (f("omegaDot") - omega_e) * tk
+          - omega_e * f("t_oe"))
     xp, yp = r * np.cos(u), r * np.sin(u)
     pos = np.stack([xp * np.cos(Om) - yp * np.cos(inc) * np.sin(Om),
                     xp * np.sin(Om) + yp * np.cos(inc) * np.cos(Om),
@@ -154,12 +157,28 @@ def cart2geo(x, y, z):
     return float(np.degrees(phi)), float(np.degrees(lam)), float(h)
 
 
-def signal_delay(eph: Ephemeris, recv_ecef, t_receive: float) -> float:
+def signal_delay(eph: Ephemeris, recv_ecef, t_receive: float,
+                 **orbit) -> float:
     """Geometric delay [s] of reception at true time t_receive (fixed
-    point in the emission time, with the Earth's turn)."""
+    point in the emission time, with the Earth's turn); orbit: satpos's
+    gm and omega_e."""
     tau = 0.075
     for _ in range(12):
-        pos, _ = satpos(t_receive - tau, [eph])
+        pos, _ = satpos(t_receive - tau, [eph], **orbit)
         rot = e_r_corr(np.array([tau]), pos)[0]
         tau = float(np.linalg.norm(rot - recv_ecef) / SPEED_OF_LIGHT)
     return tau
+
+
+def fit_delay(eph, recv, t_r0: float, T: float, **orbit) -> tuple:
+    """(tau0, first, second derivative) of the quadratic through the
+    geometric delay at t_r0, t_r0 + T/2 and t_r0 + T. The IF simulator
+    integrates the Doppler rate as the second derivative (pi fd_rate t^2
+    in the carrier), so it takes 4 (tau2 - 2 tau1 + tau0) / T^2, not
+    half of it: half leaves the code delay up to ~50 m off the geometry
+    at the end of a 45 s recording, and the fixes ~100 m off."""
+    tau0 = signal_delay(eph, recv, t_r0, **orbit)
+    tau1 = signal_delay(eph, recv, t_r0 + T / 2, **orbit)
+    tau2 = signal_delay(eph, recv, t_r0 + T, **orbit)
+    return (tau0, (4 * tau1 - 3 * tau0 - tau2) / T,
+            4 * (tau2 - 2 * tau1 + tau0) / (T * T))

@@ -2,8 +2,9 @@
 names cells; each names a configuration (configs/<config>.json), a traffic
 mix (traffic/<traffic>.json) and, through the per-layer metrics that list
 it, metric readers (metrics/<metric>.py); the configuration names its
+signal (signals/<signal>.py: codes, sky and broadcast truth) and its
 tracking kernel (kernels/<kernel>.json: launch counter, device symbol and
-least work per sample). Adding a cell is adding files
+least work per sample). Adding a cell, or a signal, is adding files
 and entries; nothing here changes.
 """
 
@@ -30,14 +31,31 @@ def listed(folder: str, suffix: str, base: Path = HERE) -> list:
                   if not p.name.startswith("_"))
 
 
-def reader(name: str, folder: Path = HERE / "metrics"):
-    """The `read` function of metrics/<name>.py."""
-    path = folder / f"{name}.py"
+def _load(path: Path, prefix: str):
+    """The Python file at path, loaded as a module of its own."""
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_"), path)
+        prefix + path.stem.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str, folder: Path = HERE / "metrics"):
+    """The `read` function of metrics/<name>.py."""
+    return _load(folder / f"{name}.py", "portbench_metric_").read
+
+
+def signal(name: str, base: Path = HERE):
+    """The module signals/<name>.py under base: `code(prn)`, one code
+    period of +-1 int8 chips at the configuration's code rate;
+    `sky(sig, traffic, seed)`, the recording's truth drawn from the seed;
+    `broadcast(eph)`, the {field: value} a decoder must read of one
+    satellite's ephemeris (None for a signal that carries none). A
+    ValueError names the file where there is none."""
+    path = base / "signals" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"no signal {name!r}: missing {path}")
+    return _load(path, "portbench_signal_")
 
 
 @dataclasses.dataclass
@@ -70,6 +88,9 @@ def plan(bench: dict, cell: str, base: Path = HERE) -> Cell:
         if not p.is_file():
             raise ValueError(f"{cell}: missing {p}")
     config = load_json(paths[0])
+    sig = config["signal"]["signal"]
+    if not (base / "signals" / f"{sig}.py").is_file():
+        raise ValueError(f"{cell}: missing {base / 'signals' / sig}.py")
     kpath = base / "kernels" / f"{config['kernel']}.json"
     if not kpath.is_file():
         raise ValueError(f"{cell}: missing {kpath}")

@@ -10,16 +10,21 @@ Numbers, each with a limit in the configuration file ("limits"):
   code_err_m      worst |epoch mean of the code-period start's distance
                   from the true code start| [m]
   symbol_errors   prompts whose sign disagrees with the symbol on the air
-                  (count; LNAV bits for GPS, the pilot's NH(10) and the
-                  coded data x Barker(5) for L3OC; one polarity per track)
-  eph_errors      GPS: satellites in the sky without a decoded ephemeris,
+                  (count; the navigation symbols, or a pilot's overlay and
+                  a data stream's symbols x overlay where the signal has
+                  both; one polarity per track)
+
+and, for a sky that carries ephemerides (its `ephs`):
+
+  eph_errors      satellites in the sky without a decoded ephemeris,
                   plus decoded fields that differ from the broadcast ones
-  passes_no_fix   GPS: completed passes without a fix
-  fix_err_m       GPS: worst 3-D distance of any fix of a pass from the
+                  (the signal module's broadcast(eph), its field table)
+  passes_no_fix   completed passes without a fix
+  fix_err_m       worst 3-D distance of any fix of a pass from the
                   true receiver position [m]
-  fixes_missing   GPS: solution epochs without a fix, summed over passes:
+  fixes_missing   solution epochs without a fix, summed over passes:
                   a fix is due every solution period from the instant the
-                  last satellite's subframes 1-3 were on the air in full
+                  last satellite's ephemeris was on the air in full
                   to the end of the pass, so a pass owes
                   floor((end - that instant) / period) distinct fix epochs
 
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from portbench.reference.truth import broadcast_ephemeris, streams_of
+from portbench.reference.truth import streams_of
 
 C_LIGHT = 299792458.0
 
@@ -97,7 +102,7 @@ def eph_errors(decoded: dict, sky) -> int:
             bad += 1
             continue
         got = decoded[prn][2]
-        want = broadcast_ephemeris(eph)
+        want = sky.signal.module.broadcast(eph)
         bad += sum(1 for k, v in want.items() if getattr(got, k) != v)
     return bad
 
@@ -108,8 +113,8 @@ def judge(sky, passes: list, cfg: dict) -> dict:
     data_off = cfg["signal"].get("data_prn_offset")
     nums = {"missed_sats": 0, "false_sats": 0, "doppler_err_hz": 0.0,
             "code_err_m": 0.0, "symbol_errors": 0}
-    gps = bool(sky.ephs)
-    if gps:
+    nav = bool(sky.ephs)
+    if nav:
         nums.update(eph_errors=0, fix_err_m=0.0, passes_no_fix=0,
                     fixes_missing=0)
     done = [p for p in passes if p.complete]
@@ -127,7 +132,7 @@ def judge(sky, passes: list, cfg: dict) -> dict:
                                          t["doppler_err_hz"])
             nums["code_err_m"] = max(nums["code_err_m"], t["code_err_m"])
             nums["symbol_errors"] += t["symbol_errors"]
-        if gps:
+        if nav:
             nums["eph_errors"] += eph_errors(p.decoded, sky)
             if not p.solutions:
                 nums["passes_no_fix"] += 1

@@ -4,10 +4,11 @@ From the inputs the benchmark made (the sky's streams, ephemerides and
 receiver position), in NumPy float64, it works out
 for any receive instant each satellite's carrier Doppler, its code phase
 and the symbol on the air, the ephemeris a decoder must read from the
-LNAV words (the broadcast fields rounded to their scale factors), and the
-receiver's position. It imports nothing of the program and takes nothing
-the program made: the program's outputs are only read to say where to
-evaluate (the receive instants they are time-tagged with).
+navigation words (the broadcast fields rounded to their scale factors, by
+the field table of the signal's module), and the receiver's position. It
+imports nothing of the program and takes nothing the program made: the
+program's outputs are only read to say where to evaluate (the receive
+instants they are time-tagged with).
 """
 
 from __future__ import annotations
@@ -16,50 +17,26 @@ import dataclasses
 
 import numpy as np
 
-#: LNAV fields: (scale, bits, signed, semicircles), IS-GPS-200 table
-#: 20-III. Integer fields not listed are carried as they are.
-LNAV_FIELDS = {
-    "T_GD": (2.0 ** -31, 8, True, False),
-    "t_oc": (16.0, 16, False, False),
-    "a_f2": (2.0 ** -55, 8, True, False),
-    "a_f1": (2.0 ** -43, 16, True, False),
-    "a_f0": (2.0 ** -31, 22, True, False),
-    "C_rs": (2.0 ** -5, 16, True, False),
-    "deltan": (2.0 ** -43, 16, True, True),
-    "M_0": (2.0 ** -31, 32, True, True),
-    "C_uc": (2.0 ** -29, 16, True, False),
-    "e": (2.0 ** -33, 32, False, False),
-    "C_us": (2.0 ** -29, 16, True, False),
-    "sqrtA": (2.0 ** -19, 32, False, False),
-    "t_oe": (16.0, 16, False, False),
-    "C_ic": (2.0 ** -29, 16, True, False),
-    "omega_0": (2.0 ** -31, 32, True, True),
-    "C_is": (2.0 ** -29, 16, True, False),
-    "i_0": (2.0 ** -31, 32, True, True),
-    "C_rc": (2.0 ** -5, 16, True, False),
-    "omega": (2.0 ** -31, 32, True, True),
-    "omegaDot": (2.0 ** -43, 24, True, True),
-    "iDot": (2.0 ** -43, 14, True, True),
-}
-LNAV_INTS = ("week", "health", "IODC", "IODE_sf2", "IODE_sf3")
-
 
 def broadcast_value(value: float, scale: float, bits: int, signed: bool,
-                    semicircles: bool) -> float:
-    """The value a field reads after the LNAV words carry it: rounded to
-    its scale, wrapped to its bit width."""
-    unit = scale * (np.pi if semicircles else 1.0)
+                    semicircles: bool, pi: float = np.pi) -> float:
+    """The value a field reads after the navigation words carry it:
+    rounded to its scale (times pi, the signal's own, for a field in
+    semicircles), wrapped to its bit width."""
+    unit = scale * (pi if semicircles else 1.0)
     q = int(round(value / unit)) & ((1 << bits) - 1)
     if signed and q >= 1 << (bits - 1):
         q -= 1 << bits
     return q * unit
 
 
-def broadcast_ephemeris(eph) -> dict:
-    """{field: value} a decoder must read for one satellite."""
-    out = {k: broadcast_value(getattr(eph, k), *v)
-           for k, v in LNAV_FIELDS.items()}
-    out.update({k: int(getattr(eph, k)) for k in LNAV_INTS})
+def broadcast_fields(eph, fields: dict, ints, pi: float = np.pi) -> dict:
+    """{field: value} a decoder must read of one satellite's ephemeris:
+    each of `fields` ({name: (scale, bits, signed, semicircles)}, a
+    signal's table) as its words carry it, each of `ints` as it is."""
+    out = {k: broadcast_value(getattr(eph, k), *v, pi=pi)
+           for k, v in fields.items()}
+    out.update({k: int(getattr(eph, k)) for k in ints})
     return out
 
 

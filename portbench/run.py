@@ -118,7 +118,7 @@ def run(args, device: str = "cuda", base=plan.HERE,
     dev = torch.device(device)
     if dev.type == "cuda":
         system.build_kernels()
-    sky = skymod.make_sky(cfg, traffic, args.seed)
+    sky = skymod.make_sky(cfg, traffic, args.seed, base)
     n_rec = traffic["recording_ms"] + traffic["pad_ms"]
     packed_dev = ifsim.recording(sky, n_rec, args.seed, dev)
     levels = ifsim.sm2_levels(packed_dev).cpu().numpy()

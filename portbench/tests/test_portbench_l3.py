@@ -2,8 +2,12 @@
     python3 -m pytest -m cuda portbench/tests/test_portbench_l3.py
 A short traced run of the GLONASS L3OC cell with the program's tracing
 on (portbench/spans.py::traced_run): it is correct, its line reports the
-cell's per-layer metrics, every search span says it correlated the 63
-codes and summed each satellite's pilot and data powers, and K3's CUDA
+cell's per-layer metrics, every search span says it summed each
+satellite's pilot and data powers, each cold search on the host
+correlated the whole bank of 63 codes and each search on the card's chunk
+only the pilot and data rows of the PRNs it may hand over (2 a PRN: 4
+while the 8 satellites are tracked and the 2 absent PRNs are wanted, more
+if a lock drops, never the bank), and K3's CUDA
 events (the superepoch spans' k3_device_ns over k3_launches) give a mean
 time per launch within 5% of the profiler's for the same window."""
 
@@ -33,10 +37,12 @@ def test_k3_events_agree_with_the_profiler(card):
     res, recs, seen = spans.traced_run(args, "cuda")
     assert res["correct"] and res["attempted"] >= 1, res["checks"]
     assert {m["name"] for m in cell.per_layer} <= set(res["metrics"])
-    searches = [s["counters"] for s in recs
-                if s["name"] in ("acq.host_search", "acq.chunk_search")]
-    assert searches and all(c == {"codes": 63, "combined": 1}
-                            for c in searches)
+    host = [s["counters"] for s in recs if s["name"] == "acq.host_search"]
+    chunk = [s["counters"] for s in recs if s["name"] == "acq.chunk_search"]
+    assert host and all(c == {"codes": 63, "combined": 1} for c in host)
+    assert chunk and all(c["combined"] == 1 and c["codes"] % 2 == 0
+                         and 4 <= c["codes"] < 63 for c in chunk), chunk
+    assert any(c["codes"] == 4 for c in chunk), chunk
     sup = [s["counters"] for s in recs if s["name"] == "superepoch"]
     n = sum(c.get("k3_launches", 0) for c in sup)
     ns = sum(c.get("k3_device_ns", 0) for c in sup)

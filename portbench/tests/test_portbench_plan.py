@@ -1,17 +1,21 @@
 """The harness is driven by data: BENCHMARK.json keeps to its schema,
-each cell finds its configuration, traffic mix and metric readers by
-name, and a configuration, a mix and a metric added only as new files are
-listed and planned without an edit to any file already there."""
+each cell finds its configuration, traffic mix, signal and metric readers
+by name, a configuration, a mix, a signal and a metric added only as new
+files are listed and planned without an edit to any file already there,
+and every path of the benchmark is a regular file or a directory."""
 
 import hashlib
 import json
+import os
 import re
 import shutil
+import stat
 import types
 
 import pytest
 
 from portbench import peaks, plan
+from portbench.gen import sky as skymod
 
 BENCH = plan.load_bench()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -64,6 +68,38 @@ def test_unknown_cell_is_refused():
         plan.plan(BENCH, "no_such.cell")
 
 
+def test_a_config_of_an_unknown_signal_is_refused(tmp_path):
+    base = tmp_path / "portbench"
+    shutil.copytree(plan.HERE, base, ignore=shutil.ignore_patterns(
+        "__pycache__", "tests"))
+    cfg = json.loads((base / "configs" / "gps_l1ca_12ch.json").read_text())
+    cfg["signal"]["signal"] = "gps_l5"
+    (base / "configs" / "gps_l1ca_12ch.json").write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="signals/gps_l5.py"):
+        plan.plan(BENCH, "gps_l1ca_12ch.hostfed_44s", base)
+    with pytest.raises(ValueError, match="signals/gps_l5.py"):
+        skymod.signal_of(cfg, base)
+
+
+@pytest.mark.parametrize("path", BENCH["paths"])
+def test_every_path_is_a_regular_file_or_a_directory(path):
+    """No symbolic link, no file with a second hard link (as one into the
+    program's tree would have) and no git submodule under the
+    benchmark's paths: a checkout holds what is written there."""
+    top = plan.ROOT / path
+    assert stat.S_ISDIR(os.lstat(top).st_mode), top
+    odd = []
+    for folder, dirs, files in os.walk(top):
+        for name in dirs + files:
+            p = os.path.join(folder, name)
+            st = os.lstat(p)
+            if name == ".git" or not (
+                    stat.S_ISDIR(st.st_mode)
+                    or (stat.S_ISREG(st.st_mode) and st.st_nlink == 1)):
+                odd.append(p)
+    assert not odd, odd
+
+
 def _digests(folder):
     return {p: hashlib.sha256(p.read_bytes()).hexdigest()
             for p in folder.rglob("*") if p.is_file()}
@@ -90,6 +126,19 @@ def test_a_cell_added_as_files_only(tmp_path):
     mix = json.loads((base / "traffic" / "hostfed_44s.json").read_text())
     mix["sky"]["cn0_dbhz"] = 40.0
     (base / "traffic" / "weak_44s.json").write_text(json.dumps(mix))
+    # A signal the benchmark has not met: one module under signals/ (the
+    # Galileo E1B one under a new name), with a configuration and a mix
+    # that name it.
+    (base / "signals" / "galileo_e1x.py").write_text(
+        (base / "signals" / "galileo_e1b.py").read_text())
+    gal = json.loads((plan.HERE / "tests" / "data" / "configs"
+                      / "galileo_e1b_12ch.json").read_text())
+    gal["signal"]["signal"] = "galileo_e1x"
+    gal["name"] = "galileo_e1x_12ch"
+    (base / "configs" / "galileo_e1x_12ch.json").write_text(json.dumps(gal))
+    (base / "traffic" / "galileo_20s.json").write_bytes(
+        (plan.HERE / "tests" / "data" / "traffic" / "galileo_20s.json")
+        .read_bytes())
     (base / "metrics" / "manager.readback_pct.py").write_text(
         "def read(ctx):\n"
         "    s = ctx['stage_s']\n"
@@ -102,6 +151,10 @@ def test_a_cell_added_as_files_only(tmp_path):
                                "config": "gps_l1ca_24ch",
                                "traffic": "weak_44s", "chips": 1,
                                "why": "new"})
+    bench["workloads"].append({"name": "galileo_e1x_12ch.galileo_20s",
+                               "config": "galileo_e1x_12ch",
+                               "traffic": "galileo_20s", "chips": 1,
+                               "why": "new signal"})
     bench["per_layer"].append({"name": "manager.readback_pct", "unit": "%",
                                "better": "lower", "source": "program_span",
                                "layer": "supervision",
@@ -133,6 +186,13 @@ def test_a_cell_added_as_files_only(tmp_path):
          "kernels": {c.kernel["name"]: c.kernel}})
     assert share == pytest.approx(
         100.0 * peaks.bound_s(n_bytes, flops) / 1e-3)
+    assert "galileo_e1x" in plan.listed("signals", ".py", base)
+    g = plan.plan(bench, "galileo_e1x_12ch.galileo_20s", base)
+    sky = skymod.make_sky(g.config, g.traffic, 2 ** 31 + 3, base)
+    assert sky.signal.module.__file__ == str(base / "signals"
+                                             / "galileo_e1x.py")
+    assert len(sky.prns) == 8 and len(sky.absent) == 2 and sky.ephs
+    assert sky.signal.code(sky.prns[0]).shape == (8184,)
     after = _digests(base)
     assert all(after[p] == d for p, d in before.items())
 
