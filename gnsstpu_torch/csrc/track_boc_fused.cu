@@ -284,13 +284,15 @@ track_boc_fused_kernel(const float2* __restrict__ chunk,
 
 }  // namespace
 
+// start_event: null, or a CUDA event recorded on the stream just before
+// the launch, after the host's preparation (a timing event pair's start).
 extern "C" int track_chunk_boc_fused_cuda(
     const float* chunk, long long n_samples, const int8_t* ctab,
     const int8_t* stab, const int* pos0, const float* finit,
     const long long* cinit, const long long* carrbase, float* out,
     float* ffin, int* pos_out, long long* cph_out, int C, int n_blocks,
     int Rc, int Rs, int blkp, int N, const float* consts, int n_consts,
-    void* stream) {
+    void* stream, void* start_event) {
   if (n_consts != NCONST || blkp < 1 || blkp > ctrack::MAX_BLKP || N < 1 ||
       N > ctrack::MAX_N || Rc < 1 || Rs < 1 || C < 0 || n_blocks < 0)
     return (int)cudaErrorInvalidValue;
@@ -311,6 +313,11 @@ extern "C" int track_chunk_boc_fused_cuda(
       &p.span_sub, &p.ang_scale, &p.inv_pi, &p.inv_2pi, &p.k1, &p.k2,
       &p.k3, &p.c_dll_p, &p.c_dll_i, &p.c_sll_p, &p.c_sll_i};
   for (int i = 0; i < NCONST; ++i) *dst[i] = consts[i];
+  if (start_event != nullptr) {
+    const cudaError_t err =
+        cudaEventRecord((cudaEvent_t)start_event, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   return ctrack::launch_clusters(
       track_boc_fused_kernel, C, N, (cudaStream_t)stream,
       reinterpret_cast<const float2*>(chunk), ctab, stab, pos0, finit,

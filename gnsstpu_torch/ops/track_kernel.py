@@ -114,7 +114,8 @@ _TIMING = threading.local()
 
 #: The kernels timed inside timed_launches (LAUNCHES' key -> the prefix
 #: of their span counters).
-TIMED = {"track_chunk_fused": "k1", "track_chunk_dual_fused": "k3"}
+TIMED = {"track_chunk_fused": "k1", "track_chunk_boc_fused": "k2",
+         "track_chunk_dual_fused": "k3"}
 
 
 @contextlib.contextmanager
@@ -663,7 +664,7 @@ def _boc_lib():
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p, ctypes.c_longlong] + [p] * 10 + [i] * 6
-                       + [p, i, p])
+                       + [p, i, p, p])
         fn.restype = ctypes.c_int
         _bind_info_and_errors(built.lib, "track_boc_fused")
     return built
@@ -726,8 +727,10 @@ def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
                           fs: float, coefs):
     """Run K2. coefs = (k1, k2, k3, c_dll_p, c_dll_i, c_sll_p, c_sll_i).
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (on
-    torch.cuda.current_stream()) or raise.
+    Dtypes and shapes are checked on every device. CPU tensors then run
+    the plain twin; CUDA tensors launch the kernel (on
+    torch.cuda.current_stream()) or raise. Inside timed_launches the
+    launch is bracketed by timing events.
     """
     kw = dict(n_blocks=n_blocks, blkp=blkp, code_length=code_length,
               sub_length=sub_length, ph_code=ph_code, ph_sub=ph_sub,
@@ -735,24 +738,24 @@ def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
               base_code_step=base_code_step, base_sub_step=base_sub_step,
               fs=fs, coefs=coefs)
     dev = chunk.device
-    if dev.type == "cpu":
-        return track_chunk_boc_fused_ref(chunk, ctab, stab, pos0, finit,
-                                         cinit, carrbase, **kw)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"track_chunk_boc_fused: unsupported device {dev}")
     C, Rc, Rs = ctab.shape[0], ctab.shape[1], stab.shape[0]
     bp = plane_stride(blkp)
     _check("chunk", chunk, torch.float32, (chunk.shape[0], 2), dev)
     _check("ctab", ctab, torch.int8, (C, Rc, 3, bp), dev)
     _check("stab", stab, torch.int8, (Rs, 3, bp), dev)
-    _check_aligned16("ctab", ctab)
-    _check_aligned16("stab", stab)
     _check("pos0", pos0, torch.int32, (C,), dev)
     _check("finit", finit, torch.float32, (C, NF), dev)
     _check("cinit", cinit, torch.int64, (C,), dev)
     _check("carrbase", carrbase, torch.int64, (C,), dev)
     if n_blocks < 0:
         raise ValueError("n_blocks must be >= 0")
+    if dev.type == "cpu":
+        return track_chunk_boc_fused_ref(chunk, ctab, stab, pos0, finit,
+                                         cinit, carrbase, **kw)
+    _check_aligned16("ctab", ctab)
+    _check_aligned16("stab", stab)
     out = torch.empty((n_blocks, C, NOUT_B), dtype=torch.float32,
                       device=dev)
     ffin = torch.empty((C, NF), dtype=torch.float32, device=dev)
@@ -766,15 +769,19 @@ def track_chunk_boc_fused(chunk, ctab, stab, pos0, finit, cinit, carrbase,
         *(k[name] for name in BOC_CONSTS))
     N, _ = cluster_split(C, blkp, _sm_count(dev))
     built = _boc_lib()
+    events = getattr(_TIMING, "events", None)
     with torch.cuda.device(dev):         # as in _launch_fused
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cur = torch.cuda.current_stream(dev)
+        pair = _start_pair(events, cur)
         rc = built.lib.track_chunk_boc_fused_cuda(
             chunk.data_ptr(), chunk.shape[0], ctab.data_ptr(),
             stab.data_ptr(), pos0.data_ptr(), finit.data_ptr(),
             cinit.data_ptr(), carrbase.data_ptr(), out.data_ptr(),
             ffin.data_ptr(), pos.data_ptr(), cph.data_ptr(), C, n_blocks,
             Rc, Rs, blkp, N, ctypes.cast(consts, ctypes.c_void_p),
-            len(BOC_CONSTS), stream)
+            len(BOC_CONSTS), cur.cuda_stream,
+            None if pair is None else pair[0].cuda_event)
+        _end_pair(events, pair, cur, "track_chunk_boc_fused")
     if rc != 0:
         msg = built.lib.track_boc_fused_error_string(rc).decode()
         raise RuntimeError(

@@ -512,6 +512,15 @@ class OnlineNavigator:
         mgr.tlm.count(epochs=len(sol.t_ms))
         for m in sol.meas:
             m["t_ms"] += t_shift_ms
+        # Port: every epoch in the manager's clock (common + t_ms, the
+        # absolute stream time), so that a channel joining or restarting,
+        # which moves `common`, never sends the fixes' t_ms (pvt records,
+        # self.solutions, the EKF's dt) back in time. key_of's absolute
+        # time is then t_ms itself.
+        sol.t_ms += common
+        for m in sol.meas:
+            m["t_ms"] += common
+        common = 0
 
         # Dedup keys must be ALIGNMENT-INDEPENDENT: t_ms is relative to
         # the common start, which rebases when the satellite set

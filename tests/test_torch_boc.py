@@ -258,6 +258,55 @@ def test_k2_wrapper_refuses_other_devices():
             fs=SIG.fs, coefs=(1.0,) * 7)
 
 
+K2_KW = dict(n_blocks=2, blkp=64, code_length=4092, sub_length=8184,
+             ph_code=64, ph_sub=64, span_code=0.375, span_sub=1.25,
+             base_code_step=0.25, base_sub_step=0.5, fs=SIG.fs,
+             coefs=(1.0,) * 7)
+#: K2's tensor arguments, in the wrapper's order: (name, dtype, shape at
+#: C channels and plane stride bp).
+K2_ARGS = (("chunk", torch.float32, lambda C, bp: (4096, 2)),
+           ("ctab", torch.int8, lambda C, bp: (C, 4, 3, bp)),
+           ("stab", torch.int8, lambda C, bp: (4, 3, bp)),
+           ("pos0", torch.int32, lambda C, bp: (C,)),
+           ("finit", torch.float32, lambda C, bp: (C, tk.NF)),
+           ("cinit", torch.int64, lambda C, bp: (C,)),
+           ("carrbase", torch.int64, lambda C, bp: (C,)))
+
+
+def _k2_args(C, blkp, bad=None, fault=None):
+    """K2's arguments on the CPU, the one named `bad` given the wrong
+    dtype ('dtype') or one more element on its last axis ('shape')."""
+    bp = tk.plane_stride(blkp)
+    out = []
+    for name, dtype, shape in K2_ARGS:
+        shape = list(shape(C, bp))
+        if name == bad and fault == "dtype":
+            dtype = torch.float64 if dtype != torch.float64 else torch.int8
+        if name == bad and fault == "shape":
+            shape[-1] += 1
+        out.append(torch.zeros(shape, dtype=dtype, device=CPU))
+    return out
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape"])
+@pytest.mark.parametrize("arg", [a[0] for a in K2_ARGS])
+def test_k2_wrapper_checks_its_inputs(arg, fault):
+    """Dtypes and shapes are checked on every device before the plain
+    twin runs on the CPU: a wrong one raises, naming the argument."""
+    err = TypeError if fault == "dtype" else ValueError
+    with pytest.raises(err, match=f"^{arg} {fault}"):
+        tk.track_chunk_boc_fused(*_k2_args(2, 64, arg, fault), **K2_KW)
+
+
+def test_k2_wrapper_runs_the_twin_on_checked_cpu_inputs():
+    before = tk.LAUNCHES["track_chunk_boc_fused"]
+    out, ffin, pos, cph = tk.track_chunk_boc_fused(*_k2_args(2, 64),
+                                                   **K2_KW)
+    assert out.shape == (2, 2, tk.NOUT_B) and ffin.shape == (2, tk.NF)
+    assert pos.dtype == torch.int32 and cph.dtype == torch.int64
+    assert tk.LAUNCHES["track_chunk_boc_fused"] == before
+
+
 def test_engine_routing():
     cfg = ReceiverConfig(signal=SIG, track=TRK, n_channels=2)
     assert make_engine(to_port(cfg), "auto").name == "boc_fused"

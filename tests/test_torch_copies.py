@@ -9,11 +9,12 @@ packer, the GP2021 golden model).
 Each copy is the origin verbatim except for the import prefix
 (`gnsstpu.` -> `gnsstpu_torch.` on import lines) and one docstring line
 naming the origin. The port extends two of them, the online navigator
-and telemetry, with its tracing spans: every line of their origin stays,
-in order (the port adds lines and may indent the origin's into blocks it
-adds). test_copies_match_their_origin is the drift guard: a later fix in
-gnsstpu that is not carried over fails it. The other tests run both
-copies on the same inputs.
+and telemetry, with its tracing spans, and the navigator with fixes in
+the manager's clock: every line of their origin stays, in order (the port
+adds lines and may indent the origin's into blocks it adds).
+test_copies_match_their_origin is the drift guard: a later fix in gnsstpu
+that is not carried over fails it. The other tests run both copies on the
+same inputs.
 
 Neither package's copies import JAX, so this file runs both side by side
 without it.
@@ -21,6 +22,7 @@ without it.
 
 import importlib
 import re
+import types
 from pathlib import Path
 
 import numpy as np
@@ -197,3 +199,71 @@ def test_pvt_lsq_parity():
     assert np.linalg.norm(rt.pos[:3] - recv) < 20.0
     for name in ("pos", "el", "az", "dop", "residuals"):
         np.testing.assert_array_equal(getattr(rj, name), getattr(rt, name))
+
+
+def _grid_navigate(**kw):
+    """pvt.navigate's epoch grid without its arithmetic: a valid fix every
+    solution period of the window from the latest anchor on, in window
+    ms as navigate reports them."""
+    period = kw["sig"].code_period_s
+    step = int(round(kw["nav"].sol_period_ms * 1e-3 / period))
+    t = np.arange(int(max(kw["subframe_start_ms"])), kw["n_ms"], step)
+    t_ms = t * period * 1e3
+    one = np.ones(len(t))
+    return types.SimpleNamespace(
+        t_ms=t_ms, valid=one > 0, x=one, y=one, z=one, latitude=one,
+        longitude=one, height=one, n_sats=np.full(len(t), len(kw["prns"])),
+        dop=np.ones((len(t), 5)), dt=0 * one, meas=[])
+
+
+@pytest.mark.parametrize("pkg", ["gnsstpu", "gnsstpu_torch"])
+def test_fixes_keep_the_managers_clock_when_a_channel_joins(
+        pkg, monkeypatch):
+    """Seven Galileo channels tracked from 0 ms, an eighth from 6,000 ms
+    (found by a later search), every ephemeris anchored at the page that
+    starts at 12,000 ms. After the eighth joins, the reference reports
+    its fixes from the eighth's start, so their t_ms go back 6,000 ms
+    and repeat earlier ones; the port reports every fix in the manager's
+    clock (the port's deviation)."""
+    navmod = importlib.import_module(f"{pkg}.runtime.navigator")
+    cfg = importlib.import_module(f"{pkg}.config")
+    tlm_mod = importlib.import_module(f"{pkg}.runtime.telemetry")
+    monkeypatch.setattr(navmod.pvt, "navigate", _grid_navigate)
+    sig = cfg.SignalConfig(signal="galileo_e1b", if_freq=0.0, fs=4.2e6,
+                           code_freq=2.046e6, code_length=8184)
+    nav = navmod.OnlineNavigator(sig, cfg.NavConfig(sol_period_ms=500))
+    tlm = tlm_mod.Telemetry(sink=None)
+    pvt_ms = []
+    tlm.subscribe(lambda r: pvt_ms.append(r["epoch_ms"])
+                  if r.get("type") == "pvt" else None)
+    mgr = types.SimpleNamespace(
+        tlm=tlm, slots=[], history={},
+        sd=types.SimpleNamespace(bit_len_codes=1))
+    period_ms = 4
+
+    def track(prn, start_ms, now_ms):
+        n = (now_ms - start_ms) // period_ms
+        mgr.history[prn] = {"start_ms": start_ms, "evicted": 0,
+                            "abs_sample": [np.arange(n, dtype=float)],
+                            "carr_cycles": []}
+        nav.decoded[prn] = ((12000 - start_ms) // period_ms, 351000.0, None)
+
+    early = [5, 7, 14, 23, 24, 28, 30]
+    mgr.slots = [types.SimpleNamespace(prn=p) for p in early]
+    for p in early:
+        track(p, 0, 14000)
+    nav.poll(mgr, 14000)
+    first = [s["t_ms"] for s in nav.solutions]
+    assert first == [10000.0 + 500.0 * k for k in range(8)]
+    mgr.slots.append(types.SimpleNamespace(prn=21))
+    for p in early:
+        track(p, 0, 18000)
+    track(21, 6000, 18000)
+    nav.poll(mgr, 18000)
+    later = [s["t_ms"] for s in nav.solutions][len(first):]
+    assert [s["n_sv"] for s in nav.solutions][len(first):] == [8] * 8
+    assert pvt_ms == [int(t) for t in first + later]
+    if pkg == "gnsstpu":
+        assert later == [8000.0 + 500.0 * k for k in range(8)]
+    else:
+        assert later == [14000.0 + 500.0 * k for k in range(8)]

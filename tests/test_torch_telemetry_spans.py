@@ -413,13 +413,15 @@ class _Event:
 def test_kernel_event_counters():
     """The superepoch span's kernel counters from timed_launches' events:
     per kernel that launched, its launches and their summed device time
-    in ns (K1 as k1_*, K3 as k3_*)."""
+    in ns (K1 as k1_*, K2 as k2_*, K3 as k3_*)."""
     ev = [("track_chunk_fused", _Event(0.0), _Event(0.75)),
           ("track_chunk_dual_fused", _Event(1.0), _Event(3.5)),
+          ("track_chunk_boc_fused", _Event(3.6), _Event(3.9)),
           ("track_chunk_fused", _Event(4.0), _Event(4.7)),
           ("track_chunk_dual_fused", _Event(5.0), _Event(7.6))]
     assert track_kernel.event_counters(ev) == {
         "k1_launches": 2, "k1_device_ns": 1_450_000,
+        "k2_launches": 1, "k2_device_ns": 300_000,
         "k3_launches": 2, "k3_device_ns": 5_100_000}
     assert track_kernel.event_counters(ev[:1]) == {
         "k1_launches": 1, "k1_device_ns": 750_000}
