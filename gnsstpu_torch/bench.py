@@ -388,8 +388,9 @@ class _StageCollector:
 
 
 def _link_upload_mbps(device: torch.device):
-    """MiB/s of one 2 MiB copy from pageable host memory (what the
-    manager uploads from) to the card; None on the CPU (no link)."""
+    """MiB/s of one 2 MiB copy from pageable host memory to the card
+    (the manager uploads a host chunk from pinned staging instead,
+    runtime/feed_stage.py); None on the CPU (no link)."""
     if device.type != "cuda":
         return None
     up = np.zeros(2 * 1024 * 1024, np.int8)

@@ -28,7 +28,9 @@ superepoch of decision lag); the rows carry across superepochs, shifted
 by the base delta, and slots placed by a supervision start one
 superepoch later. readback='compact' ships the per-block observables as one byte-packed
 buffer (f16 prompts, pilot and data for L3OC, u16 rem, i16 blksize delta,
-f32 Doppler + stats).
+f32 Doppler + stats). A chunk read into host memory crosses to a card
+through pinned staging on a CUDA stream of the feed's own
+(runtime.feed_stage), and the dispatch's stream waits for it on the card.
 
 Acquisition is FFT search over a grid built in one place (_acq_grid): the
 all-PRN code bank against a Doppler grid (CDMA), or one shared code row
@@ -62,8 +64,10 @@ launches carry CUDA timing events, summed into the superepoch span's
 k1_device_ns / k3_device_ns (with k1_launches / k3_launches), the
 dispatch span counts the summary kernel's launches (summaries), the
 feed.upload span the samples the wire table decoded (decoded; 0 for f32
-samples) beside the bytes read into host memory (bytes), and each
-search span (acq.host_search, acq.chunk_search) the code rows it
+samples) beside the bytes read into host memory (bytes), the bytes of
+those that crossed to the card through the pinned staging ring (staged)
+and the host's waits for a ring slot still in flight (stage_waits), and
+each search span (acq.host_search, acq.chunk_search) the code rows it
 correlated (codes) and whether pilot and data powers were summed
 (combined).
 """
@@ -93,6 +97,7 @@ from gnsstpu_torch.ops import fft_acquire, summary_kernel, track_kernel
 from gnsstpu_torch.ops import unpack as up
 from gnsstpu_torch.parallel.mesh import (Sharded, replicate, shard_rows,
                                          to_device, tree_map)
+from gnsstpu_torch.runtime import feed_stage
 from gnsstpu_torch.tracking import lock as tlock
 from gnsstpu_torch.tracking.engines import make_engine
 
@@ -189,6 +194,7 @@ class _Chunk:
     need_len: int
     read: object              # spans of the read and the upload
     upload: object
+    ready: object             # event dev's readers wait on, or None
 
 
 #: Bank arrays from this size up are uploaded through pinned memory
@@ -354,6 +360,10 @@ class ChannelManager:
                 self.sig, epoch_ms, sync_every=self.sync_every,
                 prefetch=self.prefetch, wire=self.wire,
                 spread_budget_s=spread_budget_s)
+            # Bytes of a host chunk, the size of a staging slot.
+            self._stage_bytes = (
+                int(self._chunk_len / up.samples_per_byte(self.wire))
+                if self.wire is not None else self._chunk_len * 8)
             engine_step = self.eng.make_step(self._bpe)
 
             def step_epoch(win, bank, state):
@@ -569,21 +579,44 @@ class ChannelManager:
             return self.source.read_packed(start, count)
         return self.source.read(start, count)
 
-    def _to_device(self, buf) -> torch.Tensor:
-        """Upload + decode to f32 [N, 2] on the device (inside the caller's
-        feed.upload span, whose `decoded` counts the samples the wire
-        table decoded). Device-resident sources hand back device tensors:
-        only the unpack runs."""
+    def _upload(self, buf):
+        """Upload + decode to f32 [N, 2] on the device, inside the
+        caller's feed.upload span (`decoded`: the samples the wire table
+        decoded; `staged`: the bytes that crossed through the pinned
+        ring; `stage_waits`: the host's waits for a ring slot). Returns
+        (the tensor, ready): a host chunk bound for a card crosses
+        through the process's staging ring (feed_stage) on the ring's
+        stream, and its readers' stream waits on ready
+        (feed_stage.consume) before reading it. ready is None where the
+        tensor is ready on the current stream: on the CPU, and for a
+        device-resident source, whose chunk only the unpack reads."""
+        on_host = not isinstance(buf, torch.Tensor) \
+            or buf.device.type == "cpu"
+        if on_host and self.device.type == "cuda":
+            dtype = np.uint8 if self.wire is not None else np.float32
+            host = torch.from_numpy(np.ascontiguousarray(buf, dtype))
+            ring = feed_stage.ring(self.device, self._stage_bytes)
+            dev, ready, waited = ring.upload(
+                host, None if self.wire is None
+                else lambda d: up.unpack(d, self.wire))
+            self.tlm.count(staged=host.nbytes, stage_waits=waited)
+            if self.wire is not None:
+                self.tlm.count(decoded=dev.shape[0])
+            return dev, ready
         if self.wire is not None:
             if not isinstance(buf, torch.Tensor):
                 buf = torch.from_numpy(np.ascontiguousarray(buf, np.uint8))
             dev = up.unpack(buf.to(self.device), self.wire)
             self.tlm.count(decoded=dev.shape[0])
-            return dev
+            return dev, None
         if isinstance(buf, torch.Tensor):
-            return buf.to(self.device, torch.float32)
+            return buf.to(self.device, torch.float32), None
         return torch.as_tensor(np.asarray(buf, np.float32),
-                               device=self.device)
+                               device=self.device), None
+
+    def _to_device(self, buf) -> torch.Tensor:
+        """_upload's tensor, ready for the current stream."""
+        return feed_stage.consume(*self._upload(buf))
 
     # --- acquisition scheduling ---
 
@@ -1056,7 +1089,8 @@ class ChannelManager:
     def _dispatch_superepoch(self, chunk: _Chunk, k: int, e0: int,
                              acq_due: bool, delta: int, mask: np.ndarray,
                              newsp: np.ndarray) -> _Inflight:
-        """Issue one superepoch against an uploaded chunk: retarget
+        """Issue one superepoch against an uploaded chunk (the current
+        stream first waits for a staged upload on the card): retarget
         sample_pos (every row shifted by delta, the rows in mask set to
         newsp), k epochs of (kernel launch + device summary), the
         readback copy and a due search. Device work and copies are
@@ -1075,6 +1109,7 @@ class ChannelManager:
         sup = tlm.open_span("superepoch", se=epoch_ms0)
         kernel_events = [] if tlm.trace else None
         with tlm.span("dispatch", se=epoch_ms0, k=k) as disp:
+            feed_stage.consume(chunk.dev, chunk.ready)
             if self._bank_dev is None:
                 self._bank_dev = self._bank_to_device()
             state = _rows_map(self._state, retarget)
@@ -1204,10 +1239,11 @@ class ChannelManager:
             self._cursor = base + k * self._espc
             return True
         with tlm.span("feed.upload", se=epoch_ms0, bytes=_host_bytes(buf),
-                      decoded=0) as upload:
-            dev = self._to_device(buf)
+                      decoded=0, staged=0, stage_waits=0) as upload:
+            dev, ready = self._upload(buf)
         chunk = _Chunk(base=base, k=k, buf=buf, dev=dev, ended=False,
-                       need_len=need_len, read=read, upload=upload)
+                       need_len=need_len, read=read, upload=upload,
+                       ready=ready)
         p = self._dispatch_superepoch(chunk, k, e0, acq_due, delta=0,
                                       mask=np.ones(len(self.slots), bool),
                                       newsp=rel)
@@ -1236,10 +1272,11 @@ class ChannelManager:
             buf, ended, need_len = self._read_superepoch(base, k)
         with tlm.span("feed.upload", se=se,
                       bytes=0 if ended else _host_bytes(buf),
-                      decoded=0) as upload:
-            dev = None if ended else self._to_device(buf)
+                      decoded=0, staged=0, stage_waits=0) as upload:
+            dev, ready = (None, None) if ended else self._upload(buf)
         return _Chunk(base=base, k=k, buf=buf, dev=dev, ended=ended,
-                      need_len=need_len, read=read, upload=upload)
+                      need_len=need_len, read=read, upload=upload,
+                      ready=ready)
 
     def _next_base(self, active: list, la: int, k: int, det: int) -> int:
         """Base for the next chunk: follow the fleet's positions (min
@@ -1258,8 +1295,8 @@ class ChannelManager:
         """The prefetch pipeline's driver. The device state carries across
         superepochs (each epoch rebases sample_pos by -espc), so
         dispatching superepoch n+1 needs no host round trip: per
-        iteration it dispatches superepoch n on the prefetched chunk,
-        starts the reader thread's prefetch of chunk n+1, then harvests
+        iteration it starts the reader thread's prefetch of chunk n+1,
+        dispatches superepoch n on the prefetched chunk, then harvests
         and supervises superepoch n-1. Only entry rebases from the host;
         slots placed by a harvest start one superepoch later."""
         espc = self._espc
@@ -1352,22 +1389,24 @@ class ChannelManager:
                         newsp[i] = sp_i
                         self._abs_pos[i] = base + sp_i
                     self._pending_allocs = []
+                # The reader starts on chunk n+1 before superepoch n is
+                # dispatched, so that its upload and decode, on the feed
+                # stream, can run under superepoch n's kernels.
+                det = base + k * espc
+                k_next = min(self.sync_every, n_epochs - e - k)
+                if k_next > 0:
+                    la = 1 if entry_rel is not None else 2
+                    nbase = self._next_base(active, la, k, det)
+                    nxt = ex.submit(self._prefetch_chunk, nbase, k_next,
+                                    (e + k) * self.epoch_ms)
                 cur = self._dispatch_superepoch(
                     chunk, k, e, epoch_ms0 >= self._next_reacq_ms, delta,
                     mask, newsp)
                 cur.fetch = fx.submit(self._materialize, cur.packed,
                                       cur.acq_fut, epoch_ms0,
                                       cur.kernel_events)
-                self._det_base = base + k * espc
-                k_next = min(self.sync_every, n_epochs - e - k)
-                if k_next > 0:
-                    la = 1 if entry_rel is not None else 2
-                    nbase = self._next_base(active, la, k, self._det_base)
-                    self._cursor = nbase
-                    nxt = ex.submit(self._prefetch_chunk, nbase, k_next,
-                                    (e + k) * self.epoch_ms)
-                else:
-                    self._cursor = self._det_base
+                self._det_base = det
+                self._cursor = nbase if k_next > 0 else det
                 if pend is not None:
                     self._harvest(pend, next_base=self._cursor,
                                   alloc_ms=(e + k) * self.epoch_ms,

@@ -10,7 +10,8 @@ gnss.<name> range of its duration. `track --profile DIR` writes the
 spans beside the trace. The search spans count the code rows searched
 and whether pilot and data powers were summed (GPS and a small L3OC
 run); K1's and K3's CUDA events become the superepoch's counters; each
-upload counts the samples the wire table decoded.
+upload counts the samples the wire table decoded, and on the CPU stages
+nothing through the pinned ring.
 """
 
 import json
@@ -265,12 +266,16 @@ def test_manager_spans(samples, prefetch, monkeypatch):
 def test_feed_upload_counts_decoded(samples, wire, prefetch):
     """Every feed.upload span counts the samples the wire table decoded
     for its chunk: the bytes read times the samples a byte for sm2 bytes
-    from host memory, 0 for f32 samples."""
+    from host memory, 0 for f32 samples. Both loops keep the staging
+    counters on it, and on the CPU nothing crosses the pinned ring:
+    staged and stage_waits read 0."""
     _, tlm = _run(samples, True, prefetch, wire)
     up = [x["counters"] for x in tlm.spans if x["name"] == "feed.upload"]
     assert up and all(c["bytes"] > 0 for c in up)
     spb = 0 if wire is None else unpack.samples_per_byte(wire)
     assert [c["decoded"] for c in up] == [c["bytes"] * spb for c in up]
+    assert [(c["staged"], c["stage_waits"]) for c in up] == \
+        [(0, 0)] * len(up)
 
 
 def test_spans_are_profiler_ranges(samples, tmp_path):
